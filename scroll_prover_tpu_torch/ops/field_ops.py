@@ -1,0 +1,277 @@
+"""Modular arithmetic on limb-plane field elements, in PyTorch.
+
+Field elements are int32 tensors of shape (..., 16) holding 16-bit limbs,
+little-endian (fields/limbs.py): the JAX package's layout, so the tests
+compare like with like. add/sub/neg are plain PyTorch on either device.
+
+The Montgomery product is kernel K1 on the card: a CUDA tensor goes through
+`mont_mul_k1` (csrc/mont_mul.cu), for Fr and for Fq with the modulus passed
+in; a CPU tensor goes through `_mont_mul_plain`, a lazy-carry CIOS in int64.
+On the card a plain-torch CIOS is ~250 small launches per product, and the
+prover calls the product thousands of times.
+
+Every output is canonical (< p), so the kernel, the plain version and the JAX
+package agree bit for bit whatever algorithm each uses inside.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fields.limbs import (
+    LIMB_DTYPE, LIMB_MASK, N_LIMBS, LimbField, int_to_limbs, ints_to_limbs,
+    limbs_from_torch, limbs_to_ints, limbs_to_torch,
+)
+from . import cuda_lib
+
+_CONSTS: dict = {}
+
+
+def _const(f: LimbField, name: str, device) -> torch.Tensor:
+    """Per-field constant limb rows (p, R mod p, R^2 mod p, 1), cached per
+    device."""
+    key = (f.modulus, name, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        vals = {"p": f.p_limbs, "r": f.r_limbs, "r2": f.r2_limbs, "one": int_to_limbs(1)}
+        t = limbs_to_torch(vals[name], device)
+        _CONSTS[key] = t
+    return t
+
+
+# --- raw limb add/sub with carry/borrow chains ------------------------------
+
+
+def _carry(s: torch.Tensor):
+    """Normalize lazy limbs (each < 2^31) to 16 bits; returns (limbs, carry)."""
+    out = torch.empty_like(s)
+    c = torch.zeros_like(s[..., 0])
+    for j in range(N_LIMBS):
+        v = s[..., j] + c
+        out[..., j] = v & LIMB_MASK
+        c = v >> 16
+    return out, c
+
+
+def _sub_raw(a, b):
+    """Limbwise a - b with borrow: (diff_limbs, borrow in {0, 1})."""
+    d = a - b
+    out = torch.empty_like(d)
+    brw = torch.zeros_like(d[..., 0])
+    for j in range(N_LIMBS):
+        v = d[..., j] - brw
+        out[..., j] = v & LIMB_MASK
+        brw = (v >> 16) & 1  # arithmetic shift: -1 iff v < 0
+    return out, brw
+
+
+def _cond_sub_p(f: LimbField, t, extra):
+    """t - p if t + extra*2^256 >= p else t (assumes the value is < 2p)."""
+    d, brw = _sub_raw(t, _const(f, "p", t.device))
+    take = (extra > 0) | (brw == 0)
+    return torch.where(take[..., None], d, t)
+
+
+def add_mod(f: LimbField, a, b):
+    """(a + b) mod p; inputs canonical."""
+    s, c = _carry(a + b)
+    return _cond_sub_p(f, s, c)
+
+
+def sub_mod(f: LimbField, a, b):
+    """(a - b) mod p; inputs canonical."""
+    d, brw = _sub_raw(a, b)
+    dp, _ = _carry(d + _const(f, "p", d.device))
+    return torch.where((brw > 0)[..., None], dp, d)
+
+
+def neg_mod(f: LimbField, a):
+    """(-a) mod p; maps 0 -> 0."""
+    d, _ = _sub_raw(_const(f, "p", a.device).expand_as(a), a)
+    return torch.where(is_zero(a)[..., None], a, d)
+
+
+def is_zero(a):
+    return (a == 0).all(dim=-1)
+
+
+def select(mask, a, b):
+    """Elementwise select; mask has shape a.shape[:-1]."""
+    return torch.where(mask[..., None], a, b)
+
+
+# --- Montgomery multiplication ------------------------------------------------
+
+
+def _mont_mul_plain(f: LimbField, a, b):
+    """Plain PyTorch K1: lazy-carry CIOS over 16-bit limbs in int64.
+
+    phase 1: the 32 lazy limbs of a*b (each a sum of <= 16 products < 2^32);
+    phase 2: word-by-word reduction, normalizing only position i to get
+    m_i = t_i * n0inv mod 2^16 and pushing its carry up one position;
+    phase 3: one carry pass and a conditional subtract (result < 2p)."""
+    a, b = torch.broadcast_tensors(a, b)
+    shape = a.shape
+    a = a.reshape(-1, N_LIMBS).to(torch.int64)
+    b = b.reshape(-1, N_LIMBS).to(torch.int64)
+    L = N_LIMBS
+    t = torch.zeros(a.shape[0], 2 * L + 1, dtype=torch.int64, device=a.device)
+    for i in range(L):
+        t[:, i : i + L] += a[:, i : i + 1] * b
+    p = _const(f, "p", a.device).to(torch.int64)
+    n0 = int(f.n0inv)
+    for i in range(L):
+        m = (t[:, i] * n0) & LIMB_MASK
+        t[:, i : i + L] += m[:, None] * p
+        t[:, i + 1] += t[:, i] >> 16
+    res = torch.empty(a.shape[0], L, dtype=torch.int64, device=a.device)
+    c = torch.zeros_like(t[:, 0])
+    for j in range(L):
+        v = t[:, L + j] + c
+        res[:, j] = v & LIMB_MASK
+        c = v >> 16
+    out = _cond_sub_p(f, res.to(LIMB_DTYPE), c.to(LIMB_DTYPE))
+    return out.reshape(shape)
+
+
+def _operand(x: torch.Tensor, limb_axis: int):
+    """(tensor, element stride, limb stride) for K1's strided loads: a
+    contiguous tensor, or one broadcast along every element axis (stride 0,
+    e.g. a scalar expanded over a column), is passed as it is; anything else
+    is made contiguous first."""
+    lead = [s for i, s in enumerate(x.stride()) if i != (limb_axis % x.dim())]
+    ls = x.stride(limb_axis)
+    if x.is_contiguous():
+        return x, (1 if limb_axis == 0 else N_LIMBS), ls
+    if all(s == 0 for s in lead):
+        return x, 0, ls
+    x = x.contiguous()
+    return x, (1 if limb_axis == 0 else N_LIMBS), x.stride(limb_axis)
+
+
+def mont_mul_k1(f: LimbField, a, b, limb_axis: int = -1):
+    """K1 wrapper: elementwise Montgomery product on the card.
+
+    Replaces ops/ntt_tile.py `_mul_kernel` (called through `lm_mul`) of the JAX
+    package. limb_axis=-1 takes (..., 16) row-major operands (field_ops
+    callers); limb_axis=0 takes (16, N) limb-major planes (the NTT engine).
+    Launch count: `mont_mul_k1.launches`."""
+    if not (a.is_cuda and b.is_cuda):
+        raise ValueError("mont_mul_k1 takes CUDA tensors")
+    if a.dtype != LIMB_DTYPE or b.dtype != LIMB_DTYPE:
+        raise TypeError("limb tensors must be int32")
+    a, b = torch.broadcast_tensors(a, b)
+    if a.shape[limb_axis] != N_LIMBS or (limb_axis == 0 and a.dim() != 2):
+        raise ValueError(f"bad limb layout {tuple(a.shape)} for limb_axis={limb_axis}")
+    n = a.numel() // N_LIMBS
+    out = torch.empty(a.shape, dtype=LIMB_DTYPE, device=a.device)
+    if n == 0:
+        return out
+    a, a_es, a_ls = _operand(a, limb_axis)
+    b, b_es, b_ls = _operand(b, limb_axis)
+    o_es, o_ls = (1, n) if limb_axis == 0 else (N_LIMBS, 1)
+    rc = cuda_lib.lib("mont_mul").spt_mont_mul(
+        out.data_ptr(), a.data_ptr(), b.data_ptr(), n,
+        a_es, a_ls, b_es, b_ls, o_es, o_ls,
+        cuda_lib.field_params(f), cuda_lib.stream_ptr(out),
+    )
+    cuda_lib.check(rc, "K1 mont_mul")
+    mont_mul_k1.launches += 1
+    return out
+
+
+mont_mul_k1.launches = 0
+
+
+def mont_mul(f: LimbField, a, b):
+    """Montgomery product a*b*R^-1 mod p, canonical; broadcasts."""
+    if a.is_cuda or b.is_cuda:
+        return mont_mul_k1(f, a, b)
+    return _mont_mul_plain(f, a, b)
+
+
+# the JAX package routes huge Fr arrays through the tiled kernel here; K1
+# takes any size, so the two names are one function
+mont_mul_big = mont_mul
+
+
+def to_mont(f: LimbField, a):
+    """Standard form -> Montgomery form (a * R^2 * R^-1)."""
+    return mont_mul(f, a, _const(f, "r2", a.device))
+
+
+def from_mont(f: LimbField, a):
+    """Montgomery form -> standard form (a * 1 * R^-1)."""
+    return mont_mul(f, a, _const(f, "one", a.device))
+
+
+def one_mont(f: LimbField, shape=(), *, device) -> torch.Tensor:
+    """Montgomery 1 (= R mod p) broadcast to (*shape, 16) (a view)."""
+    return _const(f, "r", device).expand(*shape, N_LIMBS)
+
+
+# --- exponentiation / inversion ----------------------------------------------
+
+
+def pow_mont(f: LimbField, a, e: int):
+    """a^e (a in Montgomery form, small static exponent)."""
+    assert 0 <= e < (1 << 24)
+    if e == 0:
+        return one_mont(f, a.shape[:-1], device=a.device).clone()
+    acc = a
+    for bit in bin(e)[3:]:
+        acc = mont_mul(f, acc, acc)
+        if bit == "1":
+            acc = mont_mul(f, acc, a)
+    return acc
+
+
+def inv_mont(f: LimbField, a):
+    """a^-1 in Montgomery form; inv(0) = 0. The callers invert a handful of
+    elements (a batch product's total, an opening point), so this reads them
+    back and inverts with host integers: (aR)^-1 R = R^2 / (aR). The result
+    is the unique canonical value the JAX package's Fermat chain gives."""
+    p = f.modulus
+    r2 = (1 << 512) % p
+    flat = limbs_from_torch(a.reshape(-1, N_LIMBS))
+    inv = [pow(v, p - 2, p) * r2 % p for v in limbs_to_ints(flat)]
+    return limbs_to_torch(ints_to_limbs(inv), a.device).reshape(a.shape)
+
+
+def _scan_mul(f: LimbField, x, reverse: bool = False):
+    """Inclusive prefix (or suffix) product along axis 0, Hillis-Steele:
+    log2(n) rounds of one full-width product each."""
+    if reverse:
+        return _scan_mul(f, x.flip(0)).flip(0)
+    x = x.clone()
+    n, s = x.shape[0], 1
+    while s < n:
+        x[s:] = mont_mul(f, x[s:], x[:-s])
+        s *= 2
+    return x
+
+
+def batch_inv_mont(f: LimbField, a):
+    """Batched inversion of (n, 16) along axis 0; zeros map to zero.
+
+    Montgomery's trick in log depth: inclusive prefix and suffix products,
+    one inversion of the total, inv[i] = pre[i-1] * suf[i+1] / total."""
+    assert a.dim() == 2, "batch_inv_mont expects (n, 16)"
+    z = is_zero(a)
+    ones = one_mont(f, a.shape[:-1], device=a.device)
+    a_safe = select(z, ones, a)
+    pref = _scan_mul(f, a_safe)
+    suff = _scan_mul(f, a_safe, reverse=True)
+    total_inv = inv_mont(f, pref[-1])
+    one_row = ones[:1]
+    pref_ex = torch.cat([one_row, pref[:-1]])
+    suff_ex = torch.cat([suff[1:], one_row])
+    invs = mont_mul(f, mont_mul(f, pref_ex, suff_ex), total_inv)
+    return select(z, torch.zeros_like(a), invs)
+
+
+def rand_elements(f: LimbField, rng: np.random.Generator, n: int) -> np.ndarray:
+    """Host helper: n uniform field elements as (n, 16) uint32 (standard
+    form, canonical)."""
+    out = [int.from_bytes(rng.bytes(40), "little") % f.modulus for _ in range(n)]
+    return ints_to_limbs(out)

@@ -1,0 +1,304 @@
+"""Bucket MSM over BN254 G1 (the JAX package's v2 pipeline): kernels K3 and
+K4, the host-side digit prep and the host window fold.
+
+    scalars --_msm_prep_digits--> signed c-bit digits (W, n)
+    K3 `_accum_v2`:    thread (column-window cw, slice s) walks points
+                       i = s, s + S, s + 2S, ... and mixed-adds each into its
+                       private bucket |digit| (y negated by the sign; digit 0
+                       skipped) -> per-slice buckets (CW, S, B-1, 3, 8) words
+    K4 `_lane_reduce`: log2(S) halving rounds of complete projective adds
+                       -> one bucket table (CW, B, 3, 16) limbs
+    host `_host_fold_mont`: suffix sums and the window fold on Python ints,
+                       one inversion at the end -> affine point.
+
+Blocks on Hopper run in no order, so no bucket is carried from block to
+block as the TPU kernel carried its VMEM buckets along the sequential grid:
+every (cw, s) owns its buckets, and K4 sums them in a fixed tree. The order
+of additions is the same in the kernels and their plain versions, so their
+projective buckets agree exactly; the folded affine point agrees with the
+JAX package and with host Pippenger.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fields.bn254 import FQ_MOD
+from ..fields.limbs import (
+    FQ_LIMB, LIMB_DTYPE, N_LIMBS, limbs_from_torch, limbs_to_words, words_to_limbs,
+)
+from . import cuda_lib
+from . import ec
+from . import field_ops as fo
+
+FQ = FQ_LIMB
+MSM_C = 6  # signed 6-bit windows: 43 windows x 33 buckets
+PTS_PER_SLICE = 256  # points each K3 thread walks
+
+
+def _wb(c: int):
+    """Window count / bucket count for signed c-bit digits (scalars < 2^254,
+    so the top digit plus one carry stays <= 2^(c-1) for c in 4..8)."""
+    W = -(-256 // c)
+    B = (1 << (c - 1)) + 1
+    return W, B
+
+
+def _slices(n: int):
+    """(S, P): S slices, a power of two so K4 halves evenly, of P points."""
+    S = 1 << max(0, (-(-n // PTS_PER_SLICE) - 1).bit_length())
+    return S, -(-n // S)
+
+
+def _msm_prep_points(points_affine_mont):
+    """(n, 2, 16) Montgomery affine -> px, py limb-major (16, n)."""
+    return (
+        points_affine_mont[:, 0, :].T.contiguous(),
+        points_affine_mont[:, 1, :].T.contiguous(),
+    )
+
+
+def _msm_prep_digits(scalar_limbs, c: int):
+    """(n, 16) standard scalar limbs -> signed digits and signs, each (W, n)
+    int32: raw c-bit windows, then the carry scan (a digit above 2^(c-1)
+    becomes 2^c - digit with its sign set and carries one up)."""
+    W, _B = _wb(c)
+    mask = (1 << c) - 1
+    half, full = 1 << (c - 1), 1 << c
+    digs, signs = [], []
+    carry = torch.zeros_like(scalar_limbs[:, 0])
+    for w in range(W):
+        bit = w * c
+        limb, sh = bit // 16, bit % 16
+        v = scalar_limbs[:, limb] >> sh
+        if sh + c > 16 and limb + 1 < N_LIMBS:
+            v = v | (scalar_limbs[:, limb + 1] << (16 - sh))
+        e = (v & mask) + carry
+        neg = e > half
+        digs.append(torch.where(neg, full - e, e))
+        carry = neg.to(LIMB_DTYPE)
+        signs.append(carry)
+    return torch.stack(digs), torch.stack(signs)
+
+
+def _pad_points_scalars(points, scalars_list):
+    """Zero-pad each scalar column to the point count (zero digits are
+    skipped, so padding adds nothing)."""
+    n = points.shape[0]
+    out = []
+    for sl in scalars_list:
+        if sl.shape[0] < n:
+            sl = torch.cat([sl, sl.new_zeros(n - sl.shape[0], N_LIMBS)])
+        out.append(sl)
+    return points, out
+
+
+# --- K3: per-slice bucket accumulation ----------------------------------------
+
+
+def _accum_v2_plain(px, py, digs, signs, B: int):
+    """Plain K3: the same walk vectorized over (cw, s), one point step at a
+    time; returns bucket words (CW, S, B-1, 3, 8)."""
+    CW, n = digs.shape
+    S, P = _slices(n)
+    NB = B - 1
+    dev = px.device
+    pad = S * P - n
+    if pad:
+        digs = torch.cat([digs, digs.new_zeros(CW, pad)], dim=1)
+        signs = torch.cat([signs, signs.new_zeros(CW, pad)], dim=1)
+        px = torch.cat([px, px.new_zeros(N_LIMBS, pad)], dim=1)
+        py = torch.cat([py, py.new_zeros(N_LIMBS, pad)], dim=1)
+    acc = ec.identity((CW * S * NB,), device=dev)
+    X, Y, Z = acc.x, acc.y, acc.z
+    owner = torch.arange(CW * S, device=dev)  # = cw * S + s
+    for t in range(P):
+        d = digs[:, t * S : (t + 1) * S].reshape(-1)
+        live = torch.nonzero(d).squeeze(1)
+        if live.numel() == 0:
+            continue
+        rows = owner[live] * NB + d[live].to(torch.int64) - 1
+        i = t * S + live % S  # point index of each live entry
+        qx = px[:, i].T
+        qy = py[:, i].T
+        sg = signs[:, t * S : (t + 1) * S].reshape(-1)[live] != 0
+        qy = fo.select(sg, fo.neg_mod(FQ, qy), qy)
+        nxt = ec.madd(ec.PointP(X[rows], Y[rows], Z[rows]), qx, qy)
+        X[rows], Y[rows], Z[rows] = nxt.x, nxt.y, nxt.z
+    tbl = torch.stack([X, Y, Z], dim=1).reshape(CW, S, NB, 3, N_LIMBS)
+    return limbs_to_words(tbl)
+
+
+def _accum_k3(px, py, digs, signs, B: int):
+    """K3 wrapper: one CUDA thread per (column-window, slice), private
+    buckets in device memory.
+
+    Replaces ops/msm_tile.py `_msm_accum_kernel` (called through `_accum_v2`) of
+    the JAX package. Launch count: `_accum_k3.launches`."""
+    CW, n = digs.shape
+    for t in (px, py, digs, signs):
+        if not t.is_cuda or t.dtype != LIMB_DTYPE:
+            raise ValueError("_accum_k3 takes int32 CUDA tensors")
+    if px.shape != (N_LIMBS, n) or py.shape != (N_LIMBS, n) or signs.shape != (CW, n):
+        raise ValueError("bad K3 operand shapes")
+    if B != (1 << (MSM_C - 1)) + 1:
+        raise ValueError(f"K3 is built for c={MSM_C} (B={(1 << (MSM_C - 1)) + 1})")
+    S, P = _slices(n)
+    px, py, digs, signs = (t.contiguous() for t in (px, py, digs, signs))
+    out = torch.empty((CW, S, B - 1, 3, 8), dtype=LIMB_DTYPE, device=px.device)
+    rc = cuda_lib.lib("msm").spt_msm_accum(
+        out.data_ptr(), px.data_ptr(), py.data_ptr(), digs.data_ptr(), signs.data_ptr(),
+        n, CW, S, P, cuda_lib.curve_params(), cuda_lib.stream_ptr(out),
+    )
+    cuda_lib.check(rc, "K3 msm_accum")
+    _accum_k3.launches += 1
+    return out
+
+
+_accum_k3.launches = 0
+
+
+def _accum_v2(px, py, digs, signs, B: int):
+    """px/py (16, n); digs/signs (CW, n) -> per-slice bucket words."""
+    if px.is_cuda:
+        return _accum_k3(px, py, digs, signs, B)
+    return _accum_v2_plain(px, py, digs, signs, B)
+
+
+# --- K4: slice reduction ----------------------------------------------------
+
+
+def _lane_reduce_plain(tbl):
+    """Plain K4: (CW, S, NB, 3, 8) words -> (CW, 1, NB, 3, 8) by halving
+    rounds tbl[:, :h] + tbl[:, h:] of complete projective adds."""
+    while tbl.shape[1] > 1:
+        h = tbl.shape[1] // 2
+        lo, hi = words_to_limbs(tbl[:, :h]), words_to_limbs(tbl[:, h:])
+        s = ec.add(
+            ec.PointP(lo[..., 0, :], lo[..., 1, :], lo[..., 2, :]),
+            ec.PointP(hi[..., 0, :], hi[..., 1, :], hi[..., 2, :]),
+        )
+        tbl = limbs_to_words(torch.stack(list(s), dim=-2))
+    return tbl
+
+
+def _lane_reduce_k4(tbl):
+    """K4 wrapper: each halving round is one launch, one thread per
+    (cw, s, bucket) summing slices s and s + S/2.
+
+    Replaces ops/msm_tile.py `_lane_reduce_kernel` (called through
+    `_lane_reduce_v2`) of the JAX package. Launch count:
+    `_lane_reduce_k4.launches`."""
+    if not tbl.is_cuda or tbl.dtype != LIMB_DTYPE or tbl.shape[3:] != (3, 8):
+        raise ValueError("_lane_reduce_k4 takes (CW, S, NB, 3, 8) int32 CUDA words")
+    CW, S = tbl.shape[:2]
+    if S & (S - 1):
+        raise ValueError("K4 needs a power-of-two slice count")
+    lib = cuda_lib.lib("msm")
+    tbl = tbl.contiguous()
+    while S > 1:
+        h = S // 2
+        out = torch.empty((CW, h) + tuple(tbl.shape[2:]), dtype=LIMB_DTYPE, device=tbl.device)
+        rc = lib.spt_msm_reduce(
+            out.data_ptr(), tbl.data_ptr(), CW, h * tbl.shape[2],
+            cuda_lib.curve_params(), cuda_lib.stream_ptr(out),
+        )
+        cuda_lib.check(rc, "K4 msm_reduce")
+        _lane_reduce_k4.launches += 1
+        tbl, S = out, h
+    return tbl
+
+
+_lane_reduce_k4.launches = 0
+
+
+def _lane_reduce_v2(tbl):
+    """(CW, S, B-1, 3, 8) per-slice bucket words -> (CW, B, 3, 16) limb
+    table with bucket 0 the identity (0, 1, 0) (the fold never reads it)."""
+    red = _lane_reduce_k4(tbl) if tbl.is_cuda else _lane_reduce_plain(tbl)
+    limbs = words_to_limbs(red[:, 0])  # (CW, NB, 3, 16)
+    ident = torch.stack(list(ec.identity((limbs.shape[0],), device=limbs.device)), dim=1)
+    return torch.cat([ident[:, None], limbs], dim=1)
+
+
+# --- host projective fold (Montgomery in, one inversion out) -------------
+
+_R_INV = pow(1 << 256, -1, FQ_MOD)
+
+
+def _decode_mont_table(tbl: np.ndarray) -> list:
+    """Flatten a (..., 16) uint32 Montgomery table to standard-form ints."""
+    m = tbl.size // N_LIMBS
+    buf = np.ascontiguousarray(tbl.reshape(m, N_LIMBS)).astype("<u2").tobytes()
+    return [int.from_bytes(buf[32 * i : 32 * (i + 1)], "little") * _R_INV % FQ_MOD for i in range(m)]
+
+
+def _host_fold_mont(tbl: np.ndarray, c: int):
+    """(W, B, 3, 16) uint32 Montgomery projective bucket table -> affine int
+    point or None: complete projective adds (RCB15 alg 7, a=0) on Python
+    ints, suffix sums per window, double-and-add across windows, one
+    inversion at the end."""
+    P = FQ_MOD
+    W, B = tbl.shape[-4], tbl.shape[-3]
+    vals = _decode_mont_table(tbl)
+
+    def proj_add(a, b):
+        X1, Y1, Z1 = a
+        X2, Y2, Z2 = b
+        t0 = X1 * X2 % P
+        t1 = Y1 * Y2 % P
+        t2 = Z1 * Z2 % P
+        t3 = ((X1 + Y1) * (X2 + Y2) - t0 - t1) % P
+        t4 = ((Y1 + Z1) * (Y2 + Z2) - t1 - t2) % P
+        y3 = ((X1 + Z1) * (X2 + Z2) - t0 - t2) % P
+        x3 = 3 * t0 % P
+        t2b = 9 * t2 % P
+        z3 = (t1 + t2b) % P
+        t1b = (t1 - t2b) % P
+        y3b = 9 * y3 % P
+        X3 = (t3 * t1b - t4 * y3b) % P
+        Y3 = (t1b * z3 + y3b * x3) % P
+        Z3 = (t4 * z3 + t3 * x3) % P
+        return X3, Y3, Z3
+
+    IDENT = (0, 1, 0)
+    total = IDENT
+    for w in range(W - 1, -1, -1):
+        if total != IDENT:
+            for _ in range(c):
+                total = proj_add(total, total)
+        run = IDENT
+        acc = IDENT
+        for b in range(B - 1, 0, -1):
+            i = (w * B + b) * 3
+            pt = (vals[i], vals[i + 1], vals[i + 2])
+            if pt[2] != 0:
+                run = proj_add(run, pt) if run != IDENT else pt
+            if run != IDENT:
+                acc = proj_add(acc, run) if acc != IDENT else run
+        if acc != IDENT:
+            total = proj_add(total, acc) if total != IDENT else acc
+    if total == IDENT or total[2] == 0:
+        return None
+    zi = pow(total[2], -1, P)
+    return (total[0] * zi % P, total[1] * zi % P)
+
+
+def msm_v2_host_batch(points_affine_mont, scalar_limbs_list):
+    """C MSMs over shared points (n, 2, 16) Montgomery affine; each scalar
+    column (n_i <= n, 16) in standard form. One K3 launch for all columns,
+    K4, one small readback, then the host fold. Returns C affine points (or
+    None)."""
+    W, B = _wb(MSM_C)
+    points, scalars = _pad_points_scalars(points_affine_mont, scalar_limbs_list)
+    px, py = _msm_prep_points(points)
+    prepped = [_msm_prep_digits(sl, MSM_C) for sl in scalars]
+    digs = torch.cat([d for d, _ in prepped])  # (C*W, n)
+    signs = torch.cat([s for _, s in prepped])
+    tbl = _lane_reduce_v2(_accum_v2(px, py, digs, signs, B))
+    tbl_h = limbs_from_torch(tbl).reshape(len(scalars), W, B, 3, N_LIMBS)
+    return [_host_fold_mont(t, MSM_C) for t in tbl_h]
+
+
+def msm_v2_host(points_affine_mont, scalar_limbs):
+    return msm_v2_host_batch(points_affine_mont, [scalar_limbs])[0]

@@ -1,0 +1,324 @@
+"""KZG polynomial commitment over BN254 (SRS, commit, open, verify).
+
+An SRS holds monomial and Lagrange G1 bases plus G2 / s*G2. Commits of at
+least DEVICE_MSM_THRESHOLD points run the bucket MSM (ops/msm_tile.py: K3/K4
+on the card); smaller ones the host Pippenger, as in the JAX package.
+Verification is the host pairing (curves/pairing.py).
+
+SRS generation from a seed tau is INSECURE (tau is derivable): tests and
+benchmarks only. A deployment loads a ceremony file (`SRS.load`), or carries
+the JAX package's device arrays across with `srs_from_numpy`.
+"""
+from __future__ import annotations
+
+import hashlib
+import struct
+
+import numpy as np
+import torch
+
+from ..curves import pairing as pr
+from ..curves.bn254_curve import G1, G2, g1_generator, g2_generator
+from ..device import resolve_device
+from ..fields.bn254 import FQ_MOD, FR_MOD, FR_ROOT_OF_UNITY, FR_TWO_ADICITY
+from ..fields.limbs import (
+    FQ_LIMB, FR_LIMB, N_LIMBS, ints_to_limbs, limbs_from_torch, limbs_to_ints, limbs_to_torch,
+)
+from ..ops import ec
+from ..ops import field_ops as fo
+from ..ops import poly as poly_ops
+
+_SRS_CACHE: dict = {}
+
+# below this size a host Pippenger commit is cheaper than the device MSM
+DEVICE_MSM_THRESHOLD = 65536
+# columns per batched device commit (one K3 launch)
+COMMIT_GROUP = 8
+
+
+class SRS:
+    """Structured reference string for degrees up to 2^k, with device views
+    on `device`. Host point lists decode lazily when the SRS was made on the
+    device (generate_fast): the prove path touches only the device views."""
+
+    def __init__(self, k: int, g1_powers, g1_lagrange, g2, s_g2, device=None):
+        self.k = k
+        self.n = 1 << k
+        self.device = resolve_device(device)
+        self._g1_powers = g1_powers  # list of affine int pairs (or None), len n
+        self._g1_lagrange = g1_lagrange
+        self.g2 = g2
+        self.s_g2 = s_g2
+        self._dev_powers = None
+        self._dev_lagrange = None
+
+    @staticmethod
+    def _decode_host(dev) -> list:
+        n = dev.shape[0]
+        ints = limbs_to_ints(limbs_from_torch(fo.from_mont(FQ_LIMB, dev.reshape(2 * n, N_LIMBS))))
+        return [None if x == y == 0 else (x, y) for x, y in zip(ints[0::2], ints[1::2])]
+
+    @property
+    def g1_powers(self) -> list:
+        if self._g1_powers is None:
+            self._g1_powers = self._decode_host(self._dev_powers)
+        return self._g1_powers
+
+    @property
+    def g1_lagrange(self) -> list:
+        if self._g1_lagrange is None:
+            self._g1_lagrange = self._decode_host(self._dev_lagrange)
+        return self._g1_lagrange
+
+    # -- generation / io --------------------------------------------------
+
+    @classmethod
+    def generate(cls, k: int, seed: bytes = b"scroll-prover-tpu-test-srs", device=None):
+        """Deterministic toy SRS from a seed, on the host (INSECURE)."""
+        dev = resolve_device(device)
+        key = ("host", k, seed, str(dev))
+        if key in _SRS_CACHE:
+            return _SRS_CACHE[key]
+        tau = int.from_bytes(hashlib.sha512(seed).digest(), "little") % FR_MOD
+        n = 1 << k
+        powers_scalars = [1] * n
+        for i in range(1, n):
+            powers_scalars[i] = powers_scalars[i - 1] * tau % FR_MOD
+        g1_powers = _batch_base_mul(powers_scalars)
+        # L_i(tau) = omega^i (tau^n - 1) / (n (tau - omega^i))
+        omega = pow(FR_ROOT_OF_UNITY, 1 << (FR_TWO_ADICITY - k), FR_MOD)
+        vanish = (pow(tau, n, FR_MOD) - 1) % FR_MOD
+        ninv = pow(n, -1, FR_MOD)
+        lag_scalars = []
+        wi = 1
+        for _ in range(n):
+            denom = (tau - wi) % FR_MOD
+            lag_scalars.append(
+                wi * vanish % FR_MOD * ninv % FR_MOD * pow(denom, -1, FR_MOD) % FR_MOD
+            )
+            wi = wi * omega % FR_MOD
+        g1_lagrange = _batch_base_mul(lag_scalars)
+        h = g2_generator()
+        srs = cls(k, g1_powers, g1_lagrange, h, G2.mul(h, tau), dev)
+        _SRS_CACHE[key] = srs
+        return srs
+
+    @classmethod
+    def generate_fast(cls, k: int, seed: bytes = b"scroll-prover-tpu-test-srs", device=None):
+        """Device twin of generate(): tau powers, Lagrange scalars, the
+        fixed-base multiplications (K5) and the affine normalization all run
+        on `device`. Bit-identical points to generate()."""
+        from ..ops.fixed_base import fixed_base_mul_dev
+
+        dev = resolve_device(device)
+        key = ("fast", k, seed, str(dev))
+        if key in _SRS_CACHE:
+            return _SRS_CACHE[key]
+        tau = int.from_bytes(hashlib.sha512(seed).digest(), "little") % FR_MOD
+        n = 1 << k
+        F = FR_LIMB
+        tau_m = _mont_fr(tau, dev)
+        pow_m = poly_ops.powers_mont(F, tau_m, n)  # tau^i
+        omega = pow(FR_ROOT_OF_UNITY, 1 << (FR_TWO_ADICITY - k), FR_MOD)
+        om_m = poly_ops.powers_mont(F, _mont_fr(omega, dev), n)
+        denom = fo.sub_mod(F, tau_m.expand(n, N_LIMBS), om_m)
+        vanish_ninv = (pow(tau, n, FR_MOD) - 1) % FR_MOD * pow(n, -1, FR_MOD) % FR_MOD
+        lag_m = fo.mont_mul(
+            F, fo.mont_mul(F, om_m, fo.batch_inv_mont(F, denom)), _mont_fr(vanish_ninv, dev)
+        )
+        g = g1_generator()
+        dev_powers = fixed_base_mul_dev(g, fo.from_mont(F, pow_m))
+        dev_lagrange = fixed_base_mul_dev(g, fo.from_mont(F, lag_m))
+        h = g2_generator()
+        srs = cls(k, None, None, h, G2.mul(h, tau), dev)
+        srs._dev_powers = dev_powers
+        srs._dev_lagrange = dev_lagrange
+        _SRS_CACHE[key] = srs
+        return srs
+
+    def save(self, path: str):
+        with open(path, "wb") as fh:
+            fh.write(struct.pack("<I", self.k))
+            for plist in (self.g1_powers, self.g1_lagrange):
+                for pt in plist:
+                    fh.write(_enc_g1(pt))
+            for pt in (self.g2, self.s_g2):
+                fh.write(_enc_g2(pt))
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "SRS":
+        """Read a file written by `save` here or by the JAX package's
+        SRS.save (same layout, byte for byte)."""
+        with open(path, "rb") as fh:
+            (k,) = struct.unpack("<I", fh.read(4))
+            n = 1 << k
+            powers = [_dec_g1(fh.read(64)) for _ in range(n)]
+            lagrange = [_dec_g1(fh.read(64)) for _ in range(n)]
+            g2 = _dec_g2(fh.read(128))
+            s_g2 = _dec_g2(fh.read(128))
+        return cls(k, powers, lagrange, g2, s_g2, device)
+
+    # -- device views ------------------------------------------------------
+
+    def dev_powers(self):
+        """(n, 2, 16) int32 Montgomery affine monomial basis on self.device."""
+        if self._dev_powers is None:
+            self._dev_powers = limbs_to_torch(ec.encode_affine_mont(self.g1_powers), self.device)
+        return self._dev_powers
+
+    def dev_lagrange(self):
+        if self._dev_lagrange is None:
+            self._dev_lagrange = limbs_to_torch(ec.encode_affine_mont(self.g1_lagrange), self.device)
+        return self._dev_lagrange
+
+
+def srs_from_numpy(k: int, powers, lagrange, g2, s_g2, device=None) -> SRS:
+    """Build the port's SRS from the JAX package's arrays: `powers` and
+    `lagrange` are (n, 2, 16) uint32 affine-Montgomery limbs
+    (ec.encode_affine_mont output, or np.asarray(srs.dev_powers())); g2 and
+    s_g2 are the G2 affine Fq2 pairs."""
+    n = 1 << k
+    powers = np.asarray(powers, dtype=np.uint32)
+    lagrange = np.asarray(lagrange, dtype=np.uint32)
+    if powers.shape != (n, 2, N_LIMBS) or lagrange.shape != (n, 2, N_LIMBS):
+        raise ValueError(f"expected ({n}, 2, {N_LIMBS}) point arrays")
+    srs = SRS(k, None, None, g2, s_g2, device)
+    srs._dev_powers = limbs_to_torch(powers, srs.device)
+    srs._dev_lagrange = limbs_to_torch(lagrange, srs.device)
+    return srs
+
+
+def _mont_fr(v: int, device) -> torch.Tensor:
+    return limbs_to_torch(ints_to_limbs([v % FR_MOD * (1 << 256) % FR_MOD])[0], device)
+
+
+def _enc_g1(pt) -> bytes:
+    if pt is None:
+        return b"\x00" * 64
+    return pt[0].to_bytes(32, "little") + pt[1].to_bytes(32, "little")
+
+
+def _dec_g1(b: bytes):
+    x = int.from_bytes(b[:32], "little")
+    y = int.from_bytes(b[32:64], "little")
+    return None if x == y == 0 else (x, y)
+
+
+def _enc_g2(pt) -> bytes:
+    (x0, x1), (y0, y1) = pt
+    return b"".join(v.to_bytes(32, "little") for v in (x0, x1, y0, y1))
+
+
+def _dec_g2(b: bytes):
+    v = [int.from_bytes(b[32 * i : 32 * (i + 1)], "little") for i in range(4)]
+    return ((v[0], v[1]), (v[2], v[3]))
+
+
+def _batch_base_mul(scalars):
+    """[s*G for s in scalars] via a fixed-base window table (host, Jacobian
+    accumulation with one batched normalization at the end)."""
+    from ..curves.bn254_curve import jac_add_affine, jac_double, jac_from_affine, jac_to_affine
+
+    c = 8
+    windows = 256 // c
+    table = []  # table[w][d] = d * 2^(cw) * G, affine
+    base = jac_from_affine(g1_generator())
+    for _w in range(windows):
+        row_j = []
+        acc = None
+        base_aff = jac_to_affine(base)
+        for _d in range(1, 1 << c):
+            acc = jac_add_affine(acc, base_aff)
+            row_j.append(acc)
+        table.append([None] + _batch_to_affine(row_j))
+        for _ in range(c):
+            base = jac_double(base)
+    out_j = []
+    for s in scalars:
+        acc = None
+        s = int(s) % FR_MOD
+        for w in range(windows):
+            d = (s >> (c * w)) & ((1 << c) - 1)
+            if d:
+                acc = jac_add_affine(acc, table[w][d])
+        out_j.append(acc)
+    return _batch_to_affine(out_j)
+
+
+def _batch_to_affine(jacs):
+    """Batch-normalize Jacobian points (one field inversion total)."""
+    P = FQ_MOD
+    idx = [i for i, j in enumerate(jacs) if j is not None and j[2] % P != 0]
+    zs = [jacs[i][2] for i in idx]
+    out = [None] * len(jacs)
+    if not zs:
+        return out
+    prefix = [1]
+    for z in zs:
+        prefix.append(prefix[-1] * z % P)
+    inv = pow(prefix[-1], P - 2, P)
+    invs = [0] * len(zs)
+    for i in range(len(zs) - 1, -1, -1):
+        invs[i] = inv * prefix[i] % P
+        inv = inv * zs[i] % P
+    for k, i in enumerate(idx):
+        x, y, _z = jacs[i]
+        zi = invs[k]
+        z2 = zi * zi % P
+        out[i] = (x * z2 % P, y * z2 % P * zi % P)
+    return out
+
+
+# --- commit / open -------------------------------------------------------------
+
+
+def kzg_commit(srs: SRS, coeffs_mont, basis: str = "monomial"):
+    """Commit to (n, 16) Montgomery coefficients (or Lagrange evaluations).
+    Returns a host affine point (or None)."""
+    n = coeffs_mont.shape[0]
+    assert n <= srs.n
+    scalars = fo.from_mont(FR_LIMB, coeffs_mont)
+    if n < DEVICE_MSM_THRESHOLD:
+        from ..curves.bn254_curve import host_msm_jac
+
+        host_pts = srs.g1_powers if basis == "monomial" else srs.g1_lagrange
+        return host_msm_jac(host_pts[:n], limbs_to_ints(limbs_from_torch(scalars)))
+    from ..ops.msm_tile import msm_v2_host
+
+    base = srs.dev_powers() if basis == "monomial" else srs.dev_lagrange()
+    return msm_v2_host(base[:n], scalars)
+
+
+def kzg_commit_batch(srs: SRS, coeffs_list, basis: str = "monomial"):
+    """Commit to several columns over the same basis: device-size columns go
+    COMMIT_GROUP at a time through one batched MSM (one K3 launch each)."""
+    coeffs_list = list(coeffs_list)
+    if not coeffs_list:
+        return []
+    n_max = max(c.shape[0] for c in coeffs_list)
+    if n_max < DEVICE_MSM_THRESHOLD:
+        return [kzg_commit(srs, c, basis) for c in coeffs_list]
+    from ..ops.msm_tile import msm_v2_host_batch
+
+    base = srs.dev_powers() if basis == "monomial" else srs.dev_lagrange()
+    out = []
+    for i in range(0, len(coeffs_list), COMMIT_GROUP):
+        grp = coeffs_list[i : i + COMMIT_GROUP]
+        out.extend(msm_v2_host_batch(base[:n_max], [fo.from_mont(FR_LIMB, c) for c in grp]))
+    return out
+
+
+def kzg_open(srs: SRS, coeffs_mont, z: int):
+    """Open f at z: returns (f(z) as int, witness commitment W)."""
+    zm = _mont_fr(z, coeffs_mont.device)
+    ev = poly_ops.eval_poly_mont(FR_LIMB, coeffs_mont, zm)
+    q = poly_ops.kzg_quotient_mont(FR_LIMB, coeffs_mont, zm)
+    w = kzg_commit(srs, q)
+    return FR_LIMB.decode(limbs_from_torch(ev)[None, :])[0], w
+
+
+def verify_single_open(srs: SRS, commitment, z: int, value: int, witness) -> bool:
+    """e(C - v*G + z*W, G2) == e(W, s*G2)."""
+    g = g1_generator()
+    lhs = G1.add(G1.add(commitment, G1.neg(G1.mul(g, value))), G1.mul(witness, z))
+    return pr.pairing_check([(lhs, srs.g2), (G1.neg(witness), srs.s_g2)])

@@ -1,0 +1,89 @@
+"""Port parity: the torch field core (plain K1 on the CPU) against the JAX
+package's field_ops, exact equality (integer arithmetic: tolerance 0)."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from scroll_prover_tpu.fields.limbs import FQ_LIMB as JFQ, FR_LIMB as JFR
+from scroll_prover_tpu.ops import field_ops as jfo
+from scroll_prover_tpu_torch.fields.limbs import (
+    FQ_LIMB, FR_LIMB, limbs_from_torch, limbs_to_torch, limbs_to_words, words_to_limbs,
+)
+from scroll_prover_tpu_torch.ops import field_ops as tfo
+
+torch.set_num_threads(2)
+
+FIELDS = {"fr": (JFR, FR_LIMB), "fq": (JFQ, FQ_LIMB)}
+N = 129
+
+
+def _operands(tf, seed):
+    rng = np.random.default_rng(seed)
+    a = tfo.rand_elements(tf, rng, N)
+    b = tfo.rand_elements(tf, rng, N)
+    a[0] = 0
+    b[1] = 0
+    a[2] = tf.encode([tf.modulus - 1], mont=False)[0]  # p - 1
+    b[2] = a[2]
+    b[3] = tf.encode([1], mont=False)[0]
+    return a, b
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("op", ["add_mod", "sub_mod", "mont_mul"])
+def test_binary_ops_match_jax(field, op):
+    jf, tf = FIELDS[field]
+    a, b = _operands(tf, 11)
+    want = np.asarray(getattr(jfo, op)(jf, jnp.asarray(a), jnp.asarray(b)))
+    got = limbs_from_torch(getattr(tfo, op)(tf, limbs_to_torch(a, "cpu"), limbs_to_torch(b, "cpu")))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("op", ["neg_mod", "batch_inv_mont", "to_mont", "from_mont", "pow_13"])
+def test_unary_ops_match_jax(field, op):
+    jf, tf = FIELDS[field]
+    a, _ = _operands(tf, 12)
+    ja, ta = jnp.asarray(a), limbs_to_torch(a, "cpu")
+    if op == "pow_13":
+        want, got = jfo.pow_mont(jf, ja, 13), tfo.pow_mont(tf, ta, 13)
+    else:
+        want, got = getattr(jfo, op)(jf, ja), getattr(tfo, op)(tf, ta)
+    np.testing.assert_array_equal(limbs_from_torch(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_inv_mont_matches_jax(field):
+    jf, tf = FIELDS[field]
+    a, _ = _operands(tf, 13)
+    a = a[:4]
+    want = np.asarray(jfo.inv_mont(jf, jnp.asarray(a)))
+    got = limbs_from_torch(tfo.inv_mont(tf, limbs_to_torch(a, "cpu")))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_broadcast_scalar_product():
+    """A (16,) scalar broadcast over a column, as the prover's constants are."""
+    a, b = _operands(FR_LIMB, 14)
+    want = np.asarray(jfo.mont_mul(JFR, jnp.asarray(a), jnp.asarray(b[5])[None, :]))
+    got = tfo.mont_mul(FR_LIMB, limbs_to_torch(a, "cpu"), limbs_to_torch(b[5], "cpu"))
+    np.testing.assert_array_equal(limbs_from_torch(got), want)
+
+
+def test_word_packing_roundtrip():
+    """limbs <-> 32-bit words (the kernels' bucket format), incl. words >= 2^31."""
+    a, _ = _operands(FQ_LIMB, 15)
+    t = limbs_to_torch(a, "cpu")
+    w = limbs_to_words(t)
+    assert torch.equal(words_to_limbs(w), t)
+    want = (a[:, 0::2].astype(np.uint64) | (a[:, 1::2].astype(np.uint64) << 16)).astype(np.uint32)
+    np.testing.assert_array_equal(w.numpy().view(np.uint32), want)
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    """A kernel wrapper launches on CUDA tensors or raises; it never computes
+    on the CPU itself."""
+    a = limbs_to_torch(_operands(FR_LIMB, 16)[0], "cpu")
+    with pytest.raises(ValueError):
+        tfo.mont_mul_k1(FR_LIMB, a, a)

@@ -1,0 +1,91 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and its
+entry points never drift to the CPU on their own."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import scroll_prover_tpu_torch
+from scroll_prover_tpu_torch.ops.ntt_tile import TiledDomain
+from scroll_prover_tpu_torch.proof_system import kzg
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import scroll_prover_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "scroll_prover_tpu" or m.startswith("scroll_prover_tpu."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    """In a fresh interpreter (this process already imported JAX through
+    conftest.py): import every module of the port and chip_smoke."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 25
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without a card chip_smoke.py exits non-zero and prints no ok line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run for real")
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize(
+    "entry",
+    ["generate", "generate_fast", "load", "srs_from_numpy", "tiled_domain"],
+)
+def test_entry_points_refuse_silent_cpu(entry, tmp_path):
+    """Called without device="cpu" on a machine with no card, an entry point
+    raises instead of computing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    calls = {
+        "generate": lambda: kzg.SRS.generate(2),
+        "generate_fast": lambda: kzg.SRS.generate_fast(2),
+        "load": lambda: kzg.SRS.load(_saved(tmp_path)),
+        "srs_from_numpy": lambda: kzg.srs_from_numpy(
+            1, np.zeros((2, 2, 16), np.uint32), np.zeros((2, 2, 16), np.uint32), None, None
+        ),
+        "tiled_domain": lambda: TiledDomain(4),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def _saved(tmp_path):
+    path = str(tmp_path / "srs2")
+    kzg.SRS.generate(2, device="cpu").save(path)
+    return path
+
+
+def test_every_module_is_listed():
+    """Every module of the package is importable here too (the tests import
+    the port next to JAX)."""
+    names = [m.name for m in pkgutil.walk_packages(scroll_prover_tpu_torch.__path__, "scroll_prover_tpu_torch.")]
+    assert "scroll_prover_tpu_torch.proof_system.plonk.prover" in names
+    assert "scroll_prover_tpu_torch.ops.cuda_lib" in names

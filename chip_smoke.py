@@ -4,21 +4,31 @@
     python3 chip_smoke.py --skip-main  # phases 1-2 only (build + kernel checks)
     python3 chip_smoke.py --profile DIR  # also profile two more k=20 proves:
                                          # torch.profiler (device time by kernel,
-                                         # device busy share) and cProfile (host);
-                                         # summaries printed, full tables in DIR
+                                         # device busy share, per-launch time
+                                         # beside the per-launch bound at the
+                                         # main path's shapes) and cProfile
+                                         # (host); summaries printed, full
+                                         # tables in DIR
 
 Phases, each fatal on failure (non-zero exit, no ok line):
   1. device and build: require CUDA, print the card's name and power limit,
      build the CUDA kernels (csrc/*.cu) from this checkout in parallel;
-  2. each kernel (K1-K5) against its plain PyTorch version on the card, exact
+  2. each kernel (K1-K8) against its plain PyTorch version on the card, exact
      equality (integer arithmetic: tolerance 0), at the main path's shapes,
-     timed with CUDA events in turns (plain, kernel, kernel, plain); the MSM
-     is also checked against host Pippenger;
+     timed with CUDA events in turns (plain, kernel, kernel, plain); the MSMs
+     are also checked against host Pippenger;
   3. the main path at full size: SRS.generate_fast(20), keygen of
      BenchCircuit (4096 rows) at k = 20, prove, verify (must be True), with
-     every kernel's launch count taken over this phase alone (each must be
-     > 0), peak device memory and peak host RSS;
-  4. a `kernels` JSON line, the nvidia-smi line, and as the last line
+     every kernel's launch count taken over this phase alone (K1-K5 each
+     must be > 0), peak device memory and peak host RSS;
+  4. the alternative engines at k = 20 on phase 3's SRS: FastDomain radix 2
+     and radix 4 (K7/K8) against the tiled NTT (K1/K2), the v1 MSM (K6)
+     against the v2 MSM (K3/K4) over 4 columns of 2^20 scalars, msm_tile
+     against msm_tile_host, PoseidonDev against host Poseidon; K6-K8's
+     launch counts taken over this phase alone (each must be > 0); then K6
+     against its plain version at this phase's own shape (4 columns x 64
+     windows x 1024 point tiles) and the v1 batch's time breakdown;
+  5. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 It imports torch and the port (scroll_prover_tpu_torch) only.
@@ -26,6 +36,8 @@ It imports torch and the port (scroll_prover_tpu_torch) only.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import resource
 import subprocess
@@ -42,14 +54,24 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12 / 2
 MULS_PER_MONT = 2 * (8 * 8 + 8 * 8 + 8)  # CIOS over 8 words: a*b, m*p, m
 
-REPLACES = {
-    "K1": ("scroll_prover_tpu_torch/csrc/mont_mul.cu", "scroll_prover_tpu/ops/ntt_tile.py:184"),
-    "K2": ("scroll_prover_tpu_torch/csrc/ntt.cu", "scroll_prover_tpu/ops/ntt_tile.py:126"),
-    "K3": ("scroll_prover_tpu_torch/csrc/msm.cu", "scroll_prover_tpu/ops/msm_tile.py:531"),
-    "K4": ("scroll_prover_tpu_torch/csrc/msm.cu", "scroll_prover_tpu/ops/msm_tile.py:608"),
-    "K5": ("scroll_prover_tpu_torch/csrc/fixed_base.cu", "scroll_prover_tpu/ops/fixed_base.py:119"),
+# key: (ops module, wrapper, CUDA kernel, source, TPU kernel it replaces)
+KERNELS = {
+    "K1": ("field_ops", "mont_mul_k1", "k1_mont_mul", "mont_mul.cu", "ntt_tile.py:184"),
+    "K2": ("ntt_tile", "_bntt_k2", "k2_bntt", "ntt.cu", "ntt_tile.py:126"),
+    "K3": ("msm_tile", "_accum_k3", "k3_msm_accum", "msm.cu", "msm_tile.py:531"),
+    "K4": ("msm_tile", "_lane_reduce_k4", "k4_msm_reduce", "msm.cu", "msm_tile.py:608"),
+    "K5": ("fixed_base", "_accumulate_k5", "k5_fixed_base", "fixed_base.cu", "fixed_base.py:119"),
+    "K6": ("msm_tile", "_msm_buckets_lanes_k6", "k6_msm4_lanes", "msm4.cu", "msm_tile.py:164"),
+    "K7": ("ntt_fast", "_butterfly_k7", "k7_butterfly", "ntt_fast.cu", "ntt_fast.py:158"),
+    "K8": ("ntt_fast", "_butterfly4_k8", "k8_butterfly4", "ntt_fast.cu", "ntt_fast.py:113"),
 }
-NAMES = {"K1": "mont_mul", "K2": "bntt", "K3": "msm_accum", "K4": "msm_lane_reduce", "K5": "fixed_base"}
+MAIN_PATH = ("K1", "K2", "K3", "K4", "K5")  # phase 3
+ALT_PATH = ("K6", "K7", "K8")  # phase 4
+
+
+def wrapper(key: str):
+    mod, name = KERNELS[key][:2]
+    return getattr(importlib.import_module(f"scroll_prover_tpu_torch.ops.{mod}"), name)
 
 
 def log(msg: str) -> None:
@@ -69,25 +91,27 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def event_ms(fn, n: int):
+    """Mean CUDA-event ms of n calls of fn, and the last output."""
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
+        out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / n, out
+
+
 def time_turns(kernel, plain, reps: int):
     """CUDA-event times in ms, in turns plain, kernel, kernel, plain (after a
     warm-up of each). Returns (kernel_ms, plain_ms, kernel_out, plain_out)."""
-    def timed(fn, n):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(n):
-            out = fn()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / n, out
-
     k_out = kernel()
     p_out = plain()
     torch.cuda.synchronize()
-    p1, _ = timed(plain, 1)
-    k1, _ = timed(kernel, reps)
-    k2, _ = timed(kernel, reps)
-    p2, _ = timed(plain, 1)
+    p1, _ = event_ms(plain, 1)
+    k1, _ = event_ms(kernel, reps)
+    k2, _ = event_ms(kernel, reps)
+    p2, _ = event_ms(plain, 1)
     return (k1 + k2) / 2, (p1 + p2) / 2, k_out, p_out
 
 
@@ -104,9 +128,61 @@ def rand_field(f, n: int, gen, dev):
     return x
 
 
-def bound(bytes_moved: float, muls: float):
-    tb, to = bytes_moved / HBM_BYTES_PER_S * 1e3, muls / INT32_OPS_PER_S * 1e3
+def bound(bytes_moved: float, muls):
+    tb, to = bytes_moved / HBM_BYTES_PER_S * 1e3, float(muls) / INT32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _distinct_bytes(x) -> int:
+    """Bytes of the distinct elements a tensor view holds (a dimension with
+    stride 0, a broadcast, counts once)."""
+    n = 1
+    for size, stride in zip(x.shape, x.stride()):
+        if stride:
+            n *= size
+    return 4 * n
+
+
+def work(key: str, *args, **kw):
+    """(bytes, 32-bit multiplies) the kernel `key` must spend on the wrapper
+    arguments `args`: each input read once, each output written once; the
+    MSM kernels count the point adds these digits need (digit 0 adds
+    nothing), as a 0-d device tensor, so that work() never waits for the
+    card; bound() reads it."""
+    if key == "K1":
+        a, b = args[1], args[2]
+        n = torch.broadcast_shapes(a.shape, b.shape).numel() // 16
+        return _distinct_bytes(a) + _distinct_bytes(b) + 64 * n, MULS_PER_MONT * n
+    if key == "K2":
+        v, tw, k = args
+        return 8 * v.numel() + 4 * tw.numel(), MULS_PER_MONT * (v.numel() // 16) * k // 2
+    if key == "K3":
+        from scroll_prover_tpu_torch.ops.msm_tile import _slices
+
+        px, py, digs, signs, B = args
+        CW, n = digs.shape
+        live = (digs != 0).sum()
+        out_bytes = CW * _slices(n)[0] * (B - 1) * 96
+        return 4 * (px.numel() + py.numel() + digs.numel() + signs.numel()) + out_bytes, \
+            live * 11 * MULS_PER_MONT
+    if key == "K4":
+        (tbl,) = args
+        CW, S, NB = tbl.shape[:3]
+        return 4 * tbl.numel() + CW * NB * 96, CW * (S - 1) * NB * 12 * MULS_PER_MONT
+    if key == "K5":
+        table, digs = args
+        nz = (digs != 0).sum()
+        return 4 * (table.numel() + digs.numel()) + 3 * 64 * digs.shape[1], nz * 11 * MULS_PER_MONT
+    if key == "K6":
+        px, py, digs, signs = args
+        live = (digs != 0).sum()
+        out_bytes = digs.shape[0] * 9 * 3 * 64 * px[0, 0].numel()
+        return 4 * (px.numel() + py.numel() + digs.numel() + signs.numel()) + out_bytes, \
+            live * 11 * MULS_PER_MONT
+    x, tw, s = args  # K7, K8: the twiddles a level reads are n >> (s + 1) distinct rows
+    n = x.shape[1]
+    per = 1 if key == "K7" else 2  # products per element pair / quad: n/2 or n
+    return 2 * 64 * n + 64 * (n >> (s + 1)), MULS_PER_MONT * (n // 2) * per
 
 
 def check_kernels(dev, gen):
@@ -116,14 +192,16 @@ def check_kernels(dev, gen):
     from scroll_prover_tpu_torch.ops import field_ops as fo
     from scroll_prover_tpu_torch.ops import fixed_base as fb
     from scroll_prover_tpu_torch.ops import msm_tile as mt
+    from scroll_prover_tpu_torch.ops import ntt_fast as nf
     from scroll_prover_tpu_torch.ops import ntt_tile as nt
     from scroll_prover_tpu_torch.ops.ntt import EvaluationDomain
 
     rows = {}
 
-    def record(key, k_ms, p_ms, err, b):
+    def record(key, k_ms, p_ms, err, *args):
+        b = bound(*work(key, *args))
         rows[key] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b[0], "bound_by": b[1]}
-        log(f"{key} {NAMES[key]}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {b[0]:.4f} ms "
+        log(f"{key} {KERNELS[key][2]}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {b[0]:.4f} ms "
             f"({b[1]}), max_abs_err {err}")
         if err != 0:
             fail(f"{key} disagrees with its plain version")
@@ -150,7 +228,7 @@ def check_kernels(dev, gen):
     aq, bq = rand_field(FQ_LIMB, nq, gen, dev), rand_field(FQ_LIMB, nq, gen, dev)
     errs["Fq 2^20"] = max_abs_err(fo.mont_mul_k1(FQ_LIMB, aq, bq), fo._mont_mul_plain(FQ_LIMB, aq, bq))
     log(f"K1 max_abs_err by operand layout: {json.dumps(errs)}")
-    record("K1", k_ms, p_ms, max(errs.values()), bound(3 * 64 * n, MULS_PER_MONT * n))
+    record("K1", k_ms, p_ms, max(errs.values()), FR_LIMB, a, b)
     del a, b, aq, bq
 
     # K2: one level of the 2^23 four-step, 2^15 rows x 256
@@ -159,11 +237,26 @@ def check_kernels(dev, gen):
     v = rand_field(FR_LIMB, 1 << 23, gen, dev).T.contiguous().reshape(16, 1 << 15, 256)
     k_ms, p_ms, ko, po = time_turns(
         lambda: nt._bntt_k2(v, tw, 8), lambda: nt._bntt_plain(v, tw, 8), 10)
-    muls = MULS_PER_MONT * (1 << 23) * 8 // 2
-    record("K2", k_ms, p_ms, max_abs_err(ko, po), bound(2 * 64 * (1 << 23) + tw.numel() * 4, muls))
+    record("K2", k_ms, p_ms, max_abs_err(ko, po), v, tw, 8)
     del v, ko, po
 
-    # points for the MSM: K5 on random scalars (K5 itself is checked below)
+    # K7 / K8: levels of the staged 2^20 NTT (2^19 radix-2 / 2^18 radix-4
+    # butterflies), held at the first and the last level (the two stride
+    # extremes); the row times the first.
+    k = 20
+    x = rand_field(FR_LIMB, 1 << k, gen, dev).T.contiguous()  # (16, 2^20)
+    twk = rand_field(FR_LIMB, 1 << (k - 1), gen, dev).T.contiguous()  # (16, 2^19)
+    for key, kern, plain, last in (("K7", nf._butterfly_k7, nf._butterfly_plain, k - 1),
+                                   ("K8", nf._butterfly4_k8, nf._butterfly4_plain, k - 2)):
+        k_ms, p_ms, ko, po = time_turns(lambda: kern(x, twk, 0), lambda: plain(x, twk, 0), 20)
+        err = max_abs_err(ko, po)
+        kl_ms, pl_ms, ko, po = time_turns(lambda: kern(x, twk, last), lambda: plain(x, twk, last), 20)
+        log(f"{key} level {last}: kernel {kl_ms:.4f} ms, plain {pl_ms:.2f} ms, "
+            f"bound {bound(*work(key, x, twk, last))[0]:.4f} ms, max_abs_err {max_abs_err(ko, po)}")
+        record(key, k_ms, p_ms, max(err, max_abs_err(ko, po)), x, twk, 0)
+    del x, twk, ko, po
+
+    # points for the MSMs: K5 on random scalars (K5 itself is checked below)
     npts, cols = 1 << 16, 2
     s_pts = rand_field(FR_LIMB, npts, gen, dev)
     pts = fb.fixed_base_mul_dev(g1_generator(), s_pts)
@@ -174,35 +267,39 @@ def check_kernels(dev, gen):
     prepped = [mt._msm_prep_digits(s, mt.MSM_C) for s in scal]
     digs = torch.cat([d for d, _ in prepped])
     signs = torch.cat([s for _, s in prepped])
-    S, _P = mt._slices(npts)
-    CW = digs.shape[0]
-    live = int((digs != 0).sum().item())
 
     # K3
     k_ms, p_ms, k3o, p3o = time_turns(
         lambda: mt._accum_k3(px, py, digs, signs, B),
         lambda: mt._accum_v2_plain(px, py, digs, signs, B), 3)
-    out_bytes = CW * S * (B - 1) * 96
-    record("K3", k_ms, p_ms, max_abs_err(k3o, p3o),
-           bound(2 * 64 * npts + 2 * 4 * CW * npts + out_bytes, live * 11 * MULS_PER_MONT))
+    record("K3", k_ms, p_ms, max_abs_err(k3o, p3o), px, py, digs, signs, B)
     # K4 on K3's output
     k_ms, p_ms, ko, po = time_turns(
         lambda: mt._lane_reduce_k4(k3o), lambda: mt._lane_reduce_plain(k3o), 3)
-    adds = CW * (S - 1) * (B - 1)
-    record("K4", k_ms, p_ms, max_abs_err(ko, po),
-           bound(out_bytes + CW * (B - 1) * 96, adds * 12 * MULS_PER_MONT))
+    record("K4", k_ms, p_ms, max_abs_err(ko, po), k3o)
     del k3o, p3o, ko, po
 
-    # the whole MSM against host Pippenger at 2^10 points
+    # K6 on the same points and columns, as its raw per-lane table
+    v1 = mt._v1_prep(pts, scal)
+    px4, py4 = v1[0], v1[1]
+    d4, s4 = (t.reshape(-1, *t.shape[2:]) for t in v1[2:])  # (C * W4, tiles, 8, 128)
+    k_ms, p_ms, ko, po = time_turns(
+        lambda: mt._msm_buckets_lanes_k6(px4, py4, d4, s4),
+        lambda: mt._msm_buckets_lanes_plain(px4, py4, d4, s4), 3)
+    record("K6", k_ms, p_ms, max_abs_err(ko, po), px4, py4, d4, s4)
+    del v1, px4, py4, d4, s4, ko, po
+
+    # the whole MSMs against host Pippenger at 2^10 points
     m = 1 << 10
     host_pts_flat = limbs_to_ints(limbs_from_torch(fo.from_mont(FQ_LIMB, pts[:m].reshape(2 * m, 16))))
     host_pts = list(zip(host_pts_flat[0::2], host_pts_flat[1::2]))
     for s in scal:
         want = host_msm_jac(host_pts, limbs_to_ints(limbs_from_torch(s[:m])))
-        got = mt.msm_v2_host(pts[:m], s[:m])
-        if got != want:
+        if mt.msm_v2_host(pts[:m], s[:m]) != want:
             fail("K3/K4 MSM disagrees with host Pippenger")
-    log("K3/K4 MSM at 2^10 points == host_msm_jac")
+        if mt.msm_tile_host(pts[:m], s[:m]) != want:
+            fail("K6 MSM disagrees with host Pippenger")
+    log("K3/K4 and K6 MSMs at 2^10 points == host_msm_jac")
 
     # K5 at 2^16 scalars
     table = fb._table_for(g1_generator(), dev)
@@ -212,15 +309,21 @@ def check_kernels(dev, gen):
     k_ms, p_ms, ko, po = time_turns(
         lambda: torch.stack(list(fb._accumulate_k5(table, d5))),
         lambda: torch.stack(list(fb._accumulate_plain(table, d5))), 5)
-    nz = int((d5 != 0).sum().item())
-    record("K5", k_ms, p_ms, max_abs_err(ko, po),
-           bound(table.numel() * 4 + d5.numel() * 4 + 3 * 64 * npts, nz * 11 * MULS_PER_MONT))
+    record("K5", k_ms, p_ms, max_abs_err(ko, po), table, d5)
+    # K5 alone at the main path's shape: generate_fast(20) gives it 2^20
+    # scalars per launch (the profiled prove launches it never)
+    d20 = fb._digits(rand_field(FR_LIMB, 1 << 20, gen, dev))
+    fb._accumulate_k5(table, d20)
+    k_ms, _ = event_ms(lambda: fb._accumulate_k5(table, d20), 3)
+    b = bound(*work("K5", table, d20))
+    log(f"K5 at 2^20 scalars (main-path shape): {k_ms:.4f} ms per launch, bound {b[0]:.4f} ms ({b[1]})")
     return rows
 
 
 def main_path(dev):
     """Phase 3: generate_fast(20), keygen, prove, verify of BenchCircuit.
-    Returns the phase seconds, a closure that proves again, and the proof."""
+    Returns the phase seconds, a closure that proves again, the proof and
+    the SRS."""
     from scroll_prover_tpu_torch.integration.bench_circuit import BenchCircuit
     from scroll_prover_tpu_torch.proof_system.kzg import SRS
     from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen
@@ -251,13 +354,168 @@ def main_path(dev):
     if verify(srs, vk, instance, bytes(bad)):
         fail("a tampered k=20 proof verified")
     log(f"main path proof: {len(proof)} bytes, verify True, tampered proof rejected")
-    return secs, lambda: prove(srs, pk, circ, instance, seed=b"chip-smoke"), proof
+    return secs, lambda: prove(srs, pk, circ, instance, seed=b"chip-smoke"), proof, srs
+
+
+def wall_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def alt_engines(dev, gen, srs):
+    """Phase 4: the FastDomain NTT (K7/K8), the v1 MSM (K6) and the batched
+    Poseidon at k = 20 on the main path's SRS, each held exactly against
+    its counterpart on K1-K5 or the host; wall ms of each beside it.
+    Returns the MSM columns."""
+    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    from scroll_prover_tpu_torch.hashes.poseidon import poseidon_fr
+    from scroll_prover_tpu_torch.ops import ec
+    from scroll_prover_tpu_torch.ops import msm_tile as mt
+    from scroll_prover_tpu_torch.ops.ntt import EvaluationDomain
+    from scroll_prover_tpu_torch.ops.ntt_fast import FastDomain
+    from scroll_prover_tpu_torch.ops.poseidon_dev import PoseidonDev
+
+    k = 20
+    n = 1 << k
+    ms = {}
+
+    # NTT: 2^20 Montgomery column, tiled four-step (K1/K2) vs staged (K7/K8)
+    x = rand_field(FR_LIMB, n, gen, dev)
+    dom = EvaluationDomain(k)
+    dom.ntt(x)  # builds the device tables
+    ms["tiled ntt (K1/K2)"], want = wall_ms(lambda: dom.ntt(x))
+    for radix in (2, 4):
+        fd = FastDomain(k, radix=radix, device=dev)
+        fd.ntt(x)
+        ms[f"FastDomain radix {radix} ({'K7' if radix == 2 else 'K8'})"], got = wall_ms(lambda: fd.ntt(x))
+        if not torch.equal(got, want):
+            fail(f"FastDomain(20, radix={radix}).ntt != EvaluationDomain(20).ntt")
+    log("FastDomain(20) radix 2 and radix 4 == tiled NTT, exactly")
+    del x, want, got
+
+    # MSM: 4 columns of 2^20 scalars over the SRS monomial basis, one short
+    # (2^20 - 4096) and one holding zero scalars; v1 (K6) vs v2 (K3/K4)
+    base = srs.dev_powers()
+    cols = [rand_field(FR_LIMB, n, gen, dev) for _ in range(4)]
+    cols[1] = cols[1][: n - 4096]
+    cols[2][: 1 << 16] = 0
+    cols[2][::7] = 0
+    ms["msm_v2_host_batch x4 (K3/K4)"], want = wall_ms(lambda: mt.msm_v2_host_batch(base, cols))
+    ms["msm_tile_host_batch x4 (K6)"], got = wall_ms(lambda: mt.msm_tile_host_batch(base, cols))
+    if got != want or None in got:
+        fail("msm_tile_host_batch != msm_v2_host_batch over 4 columns of 2^20")
+    log("msm_tile_host_batch == msm_v2_host_batch on 4 columns of 2^20 scalars")
+
+    # msm_tile (device fold) vs msm_tile_host at 2^16 points
+    m = 1 << 16
+    ms["msm_tile 2^16 (K6, device fold)"], acc = wall_ms(lambda: mt.msm_tile(base[:m], cols[0][:m]))
+    ms["msm_tile_host 2^16 (K6, host fold)"], host = wall_ms(lambda: mt.msm_tile_host(base[:m], cols[0][:m]))
+    if host is None or ec.decode_point(acc) != host:
+        fail("msm_tile decoded != msm_tile_host at 2^16 points")
+    log("msm_tile (decoded) == msm_tile_host at 2^16 points")
+
+    # Poseidon: 2^16 rows on the card vs host Poseidon on 64 sampled rows
+    rows = 1 << 16
+    rng = torch.Generator().manual_seed(4)
+    a = [int(v) for v in torch.randint(0, 1 << 62, (rows,), generator=rng)]
+    b = [int(v) * 3 + 1 for v in torch.randint(0, 1 << 62, (rows,), generator=rng)]
+    a[0] = FR_LIMB.modulus - 1
+    pd = PoseidonDev(device=dev)
+    ms["PoseidonDev.hash2_batch 2^16 (K1)"], out = wall_ms(lambda: pd.hash2_batch(a, b, domain=2))
+    pick = [0] + [int(i) for i in torch.randint(1, rows, (63,), generator=rng)]
+    t0 = time.perf_counter()
+    host = [poseidon_fr.hash2(a[i], b[i], domain=2) for i in pick]
+    ms["host poseidon_fr x64"] = (time.perf_counter() - t0) * 1e3
+    if [out[i] for i in pick] != host:
+        fail("PoseidonDev.hash2_batch != host poseidon_fr")
+    log("PoseidonDev.hash2_batch over 2^16 rows == host poseidon_fr on 64 sampled rows")
+    for name, t in ms.items():
+        log(f"phase 4 wall: {name}: {t:.1f} ms")
+    return cols
+
+
+def v1_breakdown(base, cols) -> int:
+    """Run after phase 4's launch counts are read. Holds K6 against its
+    plain version at the shape phase 4 gave it (the 4 columns' raw per-lane
+    table, 256 column-windows x 1024 tiles), and shows where the v1 batch
+    spends its time: digit prep, K6 (also by CUDA events, beside its bound
+    here), the plain-torch lane reduction, the host fold. Returns K6's
+    max_abs_err."""
+    from scroll_prover_tpu_torch.fields.limbs import limbs_from_torch
+    from scroll_prover_tpu_torch.ops import msm_tile as mt
+
+    ms = {}
+    ms["prep"], prep = wall_ms(lambda: mt._v1_prep(base, cols))
+    ms["K6"], raw = wall_ms(lambda: mt._msm_buckets_lanes_batch(*prep))
+    k6_ms, _ = event_ms(lambda: mt._msm_buckets_lanes_batch(*prep), 2)
+    px, py = prep[0], prep[1]
+    d6, s6 = (t.reshape(-1, *t.shape[2:]) for t in prep[2:])  # (C * W4, tiles, 8, 128)
+    b6 = bound(*work("K6", px, py, d6, s6))
+    log(f"K6 at 2^20 points x 4 columns: {k6_ms:.3f} ms by CUDA events, bound {b6[0]:.3f} ms ({b6[1]})")
+    p_ms, plain = wall_ms(lambda: mt._msm_buckets_lanes_plain(px, py, d6, s6))
+    err = max_abs_err(raw.reshape(plain.shape), plain)
+    log(f"K6 at phase 4's shape {tuple(d6.shape)}: raw per-lane table vs plain version "
+        f"({p_ms / 1e3:.1f} s wall): max_abs_err {err}")
+    if err != 0:
+        fail("K6 disagrees with its plain version at phase 4's shape")
+    del plain
+    ms["lane reduction (plain torch)"], red = wall_ms(lambda: mt._reduce_lanes(raw))
+    tbls = limbs_from_torch(red)
+    ms["host fold x4"], _ = wall_ms(lambda: [mt._host_fold(t) for t in tbls])
+    for name, t in ms.items():
+        log(f"phase 4 v1 breakdown wall: {name}: {t:.1f} ms")
+    return err
+
+
+@contextlib.contextmanager
+def bound_tally():
+    """Wrap every kernel wrapper so that each call records work() on its
+    arguments (no wait for the card: the digit counts stay on the device).
+    Yields {key: [(bytes, multiplies) per call]}; convert it with
+    tally_bounds() once the traced work is over. A wrapper counts its
+    launches on the function its module's name points to, which while
+    wrapped is the wrapping function; on exit each count moves back to the
+    wrapper itself, so `wrapper(key).launches` counts every launch."""
+    calls = {key: [] for key in KERNELS}
+    saved = []
+    for key, (mod_name, name, *_rest) in KERNELS.items():
+        mod = importlib.import_module(f"scroll_prover_tpu_torch.ops.{mod_name}")
+        orig = getattr(mod, name)
+
+        def tallied(*a, _orig=orig, _key=key, **kw):
+            calls[_key].append(work(_key, *a, **kw))
+            return _orig(*a, **kw)
+
+        tallied.launches = 0
+        setattr(mod, name, tallied)
+        saved.append((mod, name, orig, tallied))
+    try:
+        yield calls
+    finally:
+        for mod, name, orig, tallied in saved:
+            setattr(mod, name, orig)
+            orig.launches += tallied.launches
+
+
+def tally_bounds(calls):
+    """{key: (summed bound ms, bytes ms, operations ms)} of bound_tally's
+    records."""
+    out = {}
+    for key, rec in calls.items():
+        ms = [(by / HBM_BYTES_PER_S * 1e3, float(mu) / INT32_OPS_PER_S * 1e3) for by, mu in rec]
+        out[key] = (sum(max(tb, to) for tb, to in ms), sum(tb for tb, _ in ms), sum(to for _, to in ms))
+    return out
 
 
 def profile_prove(run, proof, out_dir: str):
     """Two more proves, each checked against the first: one under
     torch.profiler (device kernel time; busy share = summed device time over
-    the prove's wall time), one under cProfile (host time by function)."""
+    the prove's wall time; per kernel, device time per launch beside the
+    bound per launch at the shapes this prove gave it), one under cProfile
+    (host time by function)."""
     import cProfile
     import io
     import os
@@ -265,14 +523,17 @@ def profile_prove(run, proof, out_dir: str):
 
     os.makedirs(out_dir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for key in KERNELS:
+        wrapper(key).launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
+    with bound_tally() as calls, torch.profiler.profile(activities=acts) as prof:
         again = run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if again != proof:
         fail("profiled prove gave other bytes")
+    totals = tally_bounds(calls)
     ka = prof.key_averages()
 
     def dev_us(e):
@@ -287,10 +548,25 @@ def profile_prove(run, proof, out_dir: str):
     top = sorted(on_dev, key=dev_us, reverse=True)[:15]
     with open(os.path.join(out_dir, "prove_device_profile.txt"), "w") as fh:
         fh.write(ka.table(sort_by="self_cuda_time_total", row_limit=60))
-    log(f"profile: prove wall {wall:.2f} s under torch.profiler, device busy {busy:.3f} s "
-        f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
+    log(f"profile: prove wall {wall:.2f} s under torch.profiler and the bound tally, device busy "
+        f"{busy:.3f} s ({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for e in top:
         log(f"  device {dev_us(e) / 1e3:10.1f} ms  x{e.count:<6d} {e.key[:90]}")
+    per_launch = {}
+    for key in KERNELS:
+        launches = wrapper(key).launches
+        if not launches:
+            continue
+        cname = KERNELS[key][2]
+        dev_ms = sum(dev_us(e) for e in on_dev if e.key.startswith(cname)) / 1e3
+        bnd, tb, to = totals[key]
+        per_launch[key] = {
+            "launches": launches, "device_ms": dev_ms, "ms_per_launch": dev_ms / launches,
+            "bound_ms_per_launch": bnd / launches, "bound_by": "bytes" if tb >= to else "operations",
+        }
+        log(f"  {key} {cname}: {launches} launches, device {dev_ms:.1f} ms, {dev_ms / launches:.4f} ms "
+            f"per launch, bound {bnd / launches:.4f} ms per launch ({per_launch[key]['bound_by']})")
+    log(f"profile per-launch: {json.dumps(per_launch)}")
 
     pr = cProfile.Profile()
     t0 = time.perf_counter()
@@ -312,14 +588,18 @@ def profile_prove(run, proof, out_dir: str):
         log(f"  host {tt:8.3f} s own {ct:8.3f} s cum x{nc:<8d} {os.path.basename(fn)}:{line} {name}")
 
 
-def kernel_counters():
-    from scroll_prover_tpu_torch.ops import field_ops as fo
-    from scroll_prover_tpu_torch.ops import fixed_base as fb
-    from scroll_prover_tpu_torch.ops import msm_tile as mt
-    from scroll_prover_tpu_torch.ops import ntt_tile as nt
-
-    return {"K1": fo.mont_mul_k1, "K2": nt._bntt_k2, "K3": mt._accum_k3,
-            "K4": mt._lane_reduce_k4, "K5": fb._accumulate_k5}
+def counted(keys, fn):
+    """Run fn with the launch counts of `keys` set to 0 just before; returns
+    (fn's result, {key: launches during fn}). Fails if one stayed at 0."""
+    counters = {key: wrapper(key) for key in keys}
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    launches = {key: c.launches for key, c in counters.items()}
+    missing = [key for key, v in launches.items() if not v]
+    if missing:
+        fail(f"the path never launched {missing}")
+    return out, launches
 
 
 def main() -> None:
@@ -342,7 +622,7 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)} (parallel nvcc)")
     for name, text in sorted(cuda_lib.BUILD_LOG.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}] {line.strip()}")
 
     gen = torch.Generator(device=dev)
@@ -351,32 +631,33 @@ def main() -> None:
     rows = check_kernels(dev, gen)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
-    counters = kernel_counters()
-    launches = {key: None for key in counters}
+    launches = {key: None for key in KERNELS}
     if not args.skip_main:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        secs, prove_again, proof = main_path(dev)
-        launches = {key: fn.launches for key, fn in counters.items()}
+        (secs, prove_again, proof, srs), main_launches = counted(MAIN_PATH, lambda: main_path(dev))
+        launches.update(main_launches)
         peak_dev = torch.cuda.max_memory_allocated()
         rss_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         log(f"main path seconds: {json.dumps(secs)}")
         log(f"main path peak device memory {peak_dev / 2**30:.2f} GiB; peak host RSS {rss_kib / 2**20:.2f} GiB")
-        log(f"main path launches: {json.dumps(launches)}")
-        missing = [key for key, v in launches.items() if not v]
-        if missing:
-            fail(f"the main path never launched {missing}")
+        log(f"main path launches: {json.dumps(main_launches)}")
+
+        t0 = time.perf_counter()
+        cols, alt_launches = counted(ALT_PATH, lambda: alt_engines(dev, gen, srs))
+        launches.update(alt_launches)
+        log(f"phase 4: {time.perf_counter() - t0:.1f} s; launches: {json.dumps(alt_launches)}")
+        err6 = v1_breakdown(srs.dev_powers(), cols)
+        rows["K6"]["max_abs_err"] = max(rows["K6"]["max_abs_err"], err6)
         if args.profile:
             profile_prove(prove_again, proof, args.profile)
 
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K5"):
-        src, rep = REPLACES[key]
+    for key, (_mod, _fn, cname, src, rep) in KERNELS.items():
         kernels.append({
-            "name": f"{key} {NAMES[key]}", "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[key], **rows[key], "library_ms": None,
+            "name": f"{key} {cname}", "route": "cuda", "source": f"scroll_prover_tpu_torch/csrc/{src}",
+            "replaces": f"scroll_prover_tpu/ops/{rep}", "launches": launches[key], **rows[key],
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

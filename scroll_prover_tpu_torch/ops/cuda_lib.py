@@ -23,7 +23,7 @@ from ..fields.limbs import FQ_LIMB, LimbField
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD = os.path.join(CSRC, "build")
-SOURCES = ("mont_mul", "ntt", "msm", "fixed_base")
+SOURCES = ("mont_mul", "ntt", "msm", "fixed_base", "msm4", "ntt_fast")
 HEADER = "bn254.cuh"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -145,6 +145,11 @@ _SIGS = {
         "spt_msm_reduce": [_VP, _VP, _LL, _LL, CurveParams, _VP],
     },
     "fixed_base": {"spt_fixed_base": [_VP, _VP, _VP, _LL, CurveParams, _VP]},
+    "msm4": {"spt_msm4_lanes": [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, CurveParams, _VP]},
+    "ntt_fast": {
+        "spt_butterfly": [_VP, _VP, _VP, _INT, _INT, FieldParams, _VP],
+        "spt_butterfly4": [_VP, _VP, _VP, _INT, _INT, FieldParams, _VP],
+    },
 }
 
 

@@ -1,5 +1,8 @@
-"""Bucket MSM over BN254 G1 (the JAX package's v2 pipeline): kernels K3 and
-K4, the host-side digit prep and the host window fold.
+"""Bucket MSMs over BN254 G1: the JAX package's v2 pipeline (kernels K3 and
+K4, the host-side digit prep and the host window fold) and its v1 pipeline
+(kernel K6, the lane reduction and the folds).
+
+v2, the pipeline kzg_commit uses:
 
     scalars --_msm_prep_digits--> signed c-bit digits (W, n)
     K3 `_accum_v2`:    thread (column-window cw, slice s) walks points
@@ -17,6 +20,16 @@ every (cw, s) owns its buckets, and K4 sums them in a fixed tree. The order
 of additions is the same in the kernels and their plain versions, so their
 projective buckets agree exactly; the folded affine point agrees with the
 JAX package and with host Pippenger.
+
+v1 (`msm_tile`, `msm_tile_host`, `msm_tile_host_batch`): signed 4-bit digits
+(64 windows x 9 buckets); point i goes to lane i mod LANES (LANES = SUB_T x
+128 = 1024), and K6 `_msm_buckets_lanes` gives every (column, window, lane)
+its own 8 live buckets, walked in ascending tile order -> a raw per-lane
+table (W4, B4, 3, 16, SUB_T, 128); `_reduce_lanes` (plain torch complete
+adds) sums the lanes, then `_reduce_buckets` (device) or `_host_fold`
+(host ints) folds the windows. Zero digits are skipped, so bucket 0 stays
+the identity in the kernel and in its plain version alike; the folds never
+read it.
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ from ..fields.limbs import (
 from . import cuda_lib
 from . import ec
 from . import field_ops as fo
+from .msm import B4, C4, W4, _fold_windows, _signed_digits4, _weighted_windows
 
 FQ = FQ_LIMB
 MSM_C = 6  # signed 6-bit windows: 43 windows x 33 buckets
@@ -302,3 +316,187 @@ def msm_v2_host_batch(points_affine_mont, scalar_limbs_list):
 
 def msm_v2_host(points_affine_mont, scalar_limbs):
     return msm_v2_host_batch(points_affine_mont, [scalar_limbs])[0]
+
+
+# --- v1: signed 4-bit windows, per-lane buckets (K6) ---------------------------
+
+SUB_T = 8  # sublanes per point tile: LANES = SUB_T * 128 lanes
+
+
+def _msm_buckets_lanes_plain(px, py, digs, signs):
+    """Plain K6, in K6's order: for each tile t in turn, every (cw, lane)
+    mixed-adds point t * M + lane into its bucket digit (one-hot select read
+    and write; digit 0 is skipped). px/py (16, tiles, st, lanes); digs/signs
+    (CW, tiles, st, lanes) int32 -> (CW, B4, 3, 16, st, lanes), bucket 0 the
+    identity."""
+    L, tiles, st, lanes = px.shape
+    CW, M = digs.shape[0], st * lanes
+    dev = px.device
+    qx_t, qy_t = px.reshape(L, tiles, M), py.reshape(L, tiles, M)
+    d_t, s_t = digs.reshape(CW, tiles, M), signs.reshape(CW, tiles, M)
+    acc = ec.identity((CW, B4 - 1, M), device=dev)
+    b_idx = torch.arange(1, B4, dtype=digs.dtype, device=dev)[None, :, None]
+    for t in range(tiles):
+        sel = (d_t[:, t][:, None, :] == b_idx)[..., None]  # (CW, 8, M, 1); digit 0 selects none
+        cur = ec.PointP(*(torch.where(sel, a, 0).sum(dim=1, dtype=LIMB_DTYPE) for a in acc))
+        qx = qx_t[:, t].T.expand(CW, M, N_LIMBS)
+        qy = qy_t[:, t].T.expand(CW, M, N_LIMBS)
+        qy = fo.select(s_t[:, t] != 0, fo.neg_mod(FQ, qy), qy)
+        new = ec.madd(cur, qx, qy)
+        acc = ec.PointP(*(torch.where(sel, nw[:, None], a) for nw, a in zip(new, acc)))
+    ident = ec.identity((CW, 1, M), device=dev)
+    coords = [torch.cat([i, a], dim=1) for i, a in zip(ident, acc)]  # (CW, B4, M, 16)
+    return torch.stack(coords, dim=2).permute(0, 1, 2, 4, 3).reshape(CW, B4, 3, L, st, lanes)
+
+
+def _msm_buckets_lanes_k6(px, py, digs, signs):
+    """K6 wrapper: one CUDA thread per (column-window cw, lane) holds the
+    lane's 8 live buckets and walks its points in ascending tile order.
+
+    Replaces ops/msm_tile.py `_msm_kernel` (called through
+    `_msm_buckets_lanes` and `_msm_buckets_lanes_batch`) of the JAX package.
+    Launch count: `_msm_buckets_lanes_k6.launches`."""
+    for t in (px, py, digs, signs):
+        if not t.is_cuda or t.dtype != LIMB_DTYPE:
+            raise ValueError("_msm_buckets_lanes_k6 takes int32 CUDA tensors")
+    L, tiles, st, lanes = px.shape
+    CW = digs.shape[0]
+    if L != N_LIMBS or py.shape != px.shape or digs.shape != (CW, tiles, st, lanes) or signs.shape != digs.shape:
+        raise ValueError("bad K6 operand shapes")
+    M = st * lanes
+    px, py, digs, signs = (t.contiguous() for t in (px, py, digs, signs))
+    out = torch.empty((CW, B4, 3, N_LIMBS, st, lanes), dtype=LIMB_DTYPE, device=px.device)
+    if CW and M:
+        rc = cuda_lib.lib("msm4").spt_msm4_lanes(
+            out.data_ptr(), px.data_ptr(), py.data_ptr(), digs.data_ptr(), signs.data_ptr(),
+            tiles * M, CW, M, cuda_lib.curve_params(), cuda_lib.stream_ptr(out),
+        )
+        cuda_lib.check(rc, "K6 msm4_lanes")
+        _msm_buckets_lanes_k6.launches += 1
+    return out
+
+
+_msm_buckets_lanes_k6.launches = 0
+
+
+def _msm_buckets_lanes(px, py, digs, signs):
+    """px/py (16, tiles, SUB_T, 128); digs/signs (W4, tiles, SUB_T, 128) ->
+    the raw (W4, B4, 3, 16, SUB_T, 128) per-lane bucket table."""
+    if px.is_cuda:
+        return _msm_buckets_lanes_k6(px, py, digs, signs)
+    return _msm_buckets_lanes_plain(px, py, digs, signs)
+
+
+def _msm_buckets_lanes_batch(px, py, digs, signs):
+    """C columns over shared points in one launch: digs/signs (C, W4, tiles,
+    SUB_T, 128) -> (C, W4, B4, 3, 16, SUB_T, 128)."""
+    C = digs.shape[0]
+    out = _msm_buckets_lanes(px, py, digs.reshape(C * W4, *digs.shape[2:]),
+                             signs.reshape(C * W4, *signs.shape[2:]))
+    return out.reshape(C, W4, *out.shape[1:])
+
+
+def _reduce_lanes(tbl):
+    """(..., B, 3, 16, st, lanes) per-lane buckets -> (..., B, 3, 16) by
+    log2(st * lanes) halving rounds of vectorized complete adds."""
+    *lead, B, _, L, st, lanes = tbl.shape
+    m = st * lanes
+    p = ec.PointP(*(tbl.select(-4, c).reshape(*lead, B, L, m).transpose(-1, -2) for c in range(3)))
+    while m > 1:
+        h = m // 2
+        p = ec.add(ec.PointP(*(a[..., :h, :] for a in p)), ec.PointP(*(a[..., h:, :] for a in p)))
+        m = h
+    return torch.stack([a[..., 0, :] for a in p], dim=-2)
+
+
+def _msm_buckets(px, py, digs, signs):
+    """Accumulate + lane-reduce: the (W4, B4, 3, 16) bucket table."""
+    return _reduce_lanes(_msm_buckets_lanes(px, py, digs, signs))
+
+
+def _v1_prep(points_affine_mont, scalar_list):
+    """Pad the points to a lane multiple with copies of point 0 and every
+    scalar column with zeros (zero digits add nothing) -> px, py (16, tiles,
+    SUB_T, 128) and digs, signs (C, W4, tiles, SUB_T, 128) int32."""
+    n = points_affine_mont.shape[0]
+    npad = (-n) % (SUB_T * 128)
+    if npad:
+        reps = points_affine_mont[:1].expand(npad, 2, N_LIMBS)
+        points_affine_mont = torch.cat([points_affine_mont, reps])
+    points, cols = _pad_points_scalars(points_affine_mont, scalar_list)
+    shape = (N_LIMBS, (n + npad) // (SUB_T * 128), SUB_T, 128)
+    px = points[:, 0, :].T.reshape(shape)
+    py = points[:, 1, :].T.reshape(shape)
+    prepped = [_signed_digits4(s) for s in cols]
+    digs = torch.stack([d.reshape(W4, *shape[1:]) for d, _ in prepped])
+    signs = torch.stack([s.to(LIMB_DTYPE).reshape(W4, *shape[1:]) for _, s in prepped])
+    return px, py, digs, signs
+
+
+def _msm_tbl(points_affine_mont, scalar_limbs):
+    """Pad, digit-decompose, accumulate, lane-reduce: the (W4, B4, 3, 16)
+    device bucket table of one MSM."""
+    px, py, digs, signs = _v1_prep(points_affine_mont, [scalar_limbs])
+    return _msm_buckets(px, py, digs[0], signs[0])
+
+
+def _reduce_buckets(tbl) -> ec.PointP:
+    """(W4, B4, 3, 16) lane-reduced buckets -> one projective point (device
+    weighted sums, then the window fold)."""
+    buckets = ec.PointP(tbl[:, :, 0], tbl[:, :, 1], tbl[:, :, 2])
+    return _fold_windows(_weighted_windows(buckets), C4)
+
+
+def msm_tile(points_affine_mont, scalar_limbs) -> ec.PointP:
+    """points: (n, 2, 16) Montgomery affine; scalars: (n, 16) standard limbs.
+    Returns one projective point."""
+    return _reduce_buckets(_msm_tbl(points_affine_mont, scalar_limbs))
+
+
+def msm_tile_host(points_affine_mont, scalar_limbs):
+    """msm_tile with the small (W4 x B4) fold on host ints: returns a host
+    affine point or None."""
+    return _host_fold(limbs_from_torch(_msm_tbl(points_affine_mont, scalar_limbs)))
+
+
+def msm_tile_host_batch(points_affine_mont, scalar_limbs_list):
+    """C MSMs over shared points in one K6 launch and one readback. Scalar
+    columns (n_i <= n, 16) are zero-padded. Returns C host affine points (or
+    None)."""
+    if len(scalar_limbs_list) == 1:
+        k = scalar_limbs_list[0]
+        return [msm_tile_host(points_affine_mont[: k.shape[0]], k)]
+    px, py, digs, signs = _v1_prep(points_affine_mont, scalar_limbs_list)
+    tbls = limbs_from_torch(_reduce_lanes(_msm_buckets_lanes_batch(px, py, digs, signs)))
+    return [_host_fold(t) for t in tbls]
+
+
+def _host_fold(tbl: np.ndarray):
+    """(W4, B4, 3, 16) uint32 Montgomery projective bucket table -> host
+    affine point (or None): suffix sums per window, then double-and-add
+    across windows, on affine host ints."""
+    from ..curves.bn254_curve import G1
+
+    vals = _decode_mont_table(tbl)
+    total = None
+    for w in range(W4 - 1, -1, -1):
+        for _ in range(C4):
+            total = G1.double(total) if total is not None else None
+        run = acc = None
+        for b in range(B4 - 1, 0, -1):
+            i = (w * B4 + b) * 3
+            pt = _proj_to_affine(vals[i], vals[i + 1], vals[i + 2])
+            if pt is not None:
+                run = G1.add(run, pt)
+            if run is not None:
+                acc = G1.add(acc, run)
+        if acc is not None:
+            total = G1.add(total, acc)
+    return total
+
+
+def _proj_to_affine(X: int, Y: int, Z: int):
+    if Z % FQ_MOD == 0:
+        return None
+    zi = pow(Z, -1, FQ_MOD)
+    return (X * zi % FQ_MOD, Y * zi % FQ_MOD)

@@ -87,3 +87,19 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     a = limbs_to_torch(_operands(FR_LIMB, 16)[0], "cpu")
     with pytest.raises(ValueError):
         tfo.mont_mul_k1(FR_LIMB, a, a)
+
+
+def test_poseidon_dev_matches_jax():
+    """Batched Poseidon hash2 over 16 rows (zero, r - 1 and a domain tag)
+    against the JAX package's PoseidonDev, and the host sponge."""
+    from scroll_prover_tpu.ops.poseidon_dev import PoseidonDev as JaxPoseidonDev
+    from scroll_prover_tpu_torch.hashes.poseidon import poseidon_fr
+    from scroll_prover_tpu_torch.ops.poseidon_dev import PoseidonDev
+
+    rng = np.random.default_rng(17)
+    a = [int.from_bytes(rng.bytes(32), "little") % FR_LIMB.modulus for _ in range(16)]
+    b = [int.from_bytes(rng.bytes(32), "little") % FR_LIMB.modulus for _ in range(16)]
+    a[0], b[0], b[1] = 0, 0, FR_LIMB.modulus - 1
+    got = PoseidonDev(device="cpu").hash2_batch(a, b, domain=3)
+    assert got == JaxPoseidonDev().hash2_batch(a, b, domain=3)
+    assert got == [poseidon_fr.hash2(x, y, domain=3) for x, y in zip(a, b)]

@@ -10,7 +10,11 @@ import pytest
 import torch
 
 import scroll_prover_tpu_torch
+from scroll_prover_tpu_torch.ops import msm_tile as tmt
+from scroll_prover_tpu_torch.ops import ntt_fast as tnf
+from scroll_prover_tpu_torch.ops.ntt_fast import FastDomain
 from scroll_prover_tpu_torch.ops.ntt_tile import TiledDomain
+from scroll_prover_tpu_torch.ops.poseidon_dev import PoseidonDev
 from scroll_prover_tpu_torch.proof_system import kzg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,7 +61,7 @@ def test_chip_smoke_refuses_without_cuda():
 
 @pytest.mark.parametrize(
     "entry",
-    ["generate", "generate_fast", "load", "srs_from_numpy", "tiled_domain"],
+    ["generate", "generate_fast", "load", "srs_from_numpy", "tiled_domain", "fast_domain", "poseidon_dev"],
 )
 def test_entry_points_refuse_silent_cpu(entry, tmp_path):
     """Called without device="cpu" on a machine with no card, an entry point
@@ -72,6 +76,8 @@ def test_entry_points_refuse_silent_cpu(entry, tmp_path):
             1, np.zeros((2, 2, 16), np.uint32), np.zeros((2, 2, 16), np.uint32), None, None
         ),
         "tiled_domain": lambda: TiledDomain(4),
+        "fast_domain": lambda: FastDomain(4),
+        "poseidon_dev": lambda: PoseidonDev(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -89,3 +95,20 @@ def test_every_module_is_listed():
     names = [m.name for m in pkgutil.walk_packages(scroll_prover_tpu_torch.__path__, "scroll_prover_tpu_torch.")]
     assert "scroll_prover_tpu_torch.proof_system.plonk.prover" in names
     assert "scroll_prover_tpu_torch.ops.cuda_lib" in names
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K7", "K8"])
+def test_new_kernel_wrappers_reject_cpu_tensors(kernel):
+    """K6-K8 wrappers launch on CUDA tensors or raise; the plain versions are
+    reached only through the dispatchers, for CPU tensors."""
+    x = torch.zeros((16, 16), dtype=torch.int32)
+    tw = torch.zeros((16, 8), dtype=torch.int32)
+    calls = {
+        "K6": lambda: tmt._msm_buckets_lanes_k6(
+            torch.zeros((16, 1, 1, 4), dtype=torch.int32), torch.zeros((16, 1, 1, 4), dtype=torch.int32),
+            torch.zeros((64, 1, 1, 4), dtype=torch.int32), torch.zeros((64, 1, 1, 4), dtype=torch.int32)),
+        "K7": lambda: tnf._butterfly_k7(x, tw, 0),
+        "K8": lambda: tnf._butterfly4_k8(x, tw, 0),
+    }
+    with pytest.raises(ValueError):
+        calls[kernel]()

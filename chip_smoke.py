@@ -13,21 +13,24 @@
 Phases, each fatal on failure (non-zero exit, no ok line):
   1. device and build: require CUDA, print the card's name and power limit,
      build the CUDA kernels (csrc/*.cu) from this checkout in parallel;
-  2. each kernel (K1-K8) against its plain PyTorch version on the card, exact
-     equality (integer arithmetic: tolerance 0), at the main path's shapes,
-     timed with CUDA events in turns (plain, kernel, kernel, plain); the MSMs
-     are also checked against host Pippenger;
+  2. each kernel (K1-K8, each K1 mode) against its plain PyTorch version on
+     the card, exact equality (integer arithmetic: tolerance 0), at the main
+     path's shapes, timed with CUDA events in turns (plain, kernel, kernel,
+     plain); the MSMs are also checked against host Pippenger;
   3. the main path at full size: SRS.generate_fast(20), keygen of
-     BenchCircuit (4096 rows) at k = 20, prove, verify (must be True), with
-     every kernel's launch count taken over this phase alone (K1-K5 each
-     must be > 0), peak device memory and peak host RSS;
+     BenchCircuit (4096 rows) at k = 20, prove, verify (must be True), the
+     proof's sha256 equal to PROOF_SHA256, with every kernel's launch count
+     taken over this phase alone (K1, K1as, K2-K5 each must be > 0), peak
+     device memory and peak host RSS;
   4. the alternative engines at k = 20 on phase 3's SRS: FastDomain radix 2
      and radix 4 (K7/K8) against the tiled NTT (K1/K2), the v1 MSM (K6)
      against the v2 MSM (K3/K4) over 4 columns of 2^20 scalars, msm_tile
      against msm_tile_host, PoseidonDev against host Poseidon; K6-K8's
      launch counts taken over this phase alone (each must be > 0); then K6
      against its plain version at this phase's own shape (4 columns x 64
-     windows x 1024 point tiles) and the v1 batch's time breakdown;
+     windows x 1024 point tiles) and the v1 batch's time breakdown, and K3
+     against its plain version at the shape the v2 MSM gave it (4 columns x
+     43 windows x 2^20 points);
   5. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import importlib
 import json
 import resource
@@ -54,24 +58,43 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12 / 2
 MULS_PER_MONT = 2 * (8 * 8 + 8 * 8 + 8)  # CIOS over 8 words: a*b, m*p, m
 
-# key: (ops module, wrapper, CUDA kernel, source, TPU kernel it replaces)
+# key: (ops module, wrapper, CUDA kernels, source, TPU kernel it replaces);
+# K1 and K1as are the modes of one source, one CUDA kernel per mode
 KERNELS = {
-    "K1": ("field_ops", "mont_mul_k1", "k1_mont_mul", "mont_mul.cu", "ntt_tile.py:184"),
-    "K2": ("ntt_tile", "_bntt_k2", "k2_bntt", "ntt.cu", "ntt_tile.py:126"),
-    "K3": ("msm_tile", "_accum_k3", "k3_msm_accum", "msm.cu", "msm_tile.py:531"),
-    "K4": ("msm_tile", "_lane_reduce_k4", "k4_msm_reduce", "msm.cu", "msm_tile.py:608"),
-    "K5": ("fixed_base", "_accumulate_k5", "k5_fixed_base", "fixed_base.cu", "fixed_base.py:119"),
-    "K6": ("msm_tile", "_msm_buckets_lanes_k6", "k6_msm4_lanes", "msm4.cu", "msm_tile.py:164"),
-    "K7": ("ntt_fast", "_butterfly_k7", "k7_butterfly", "ntt_fast.cu", "ntt_fast.py:158"),
-    "K8": ("ntt_fast", "_butterfly4_k8", "k8_butterfly4", "ntt_fast.cu", "ntt_fast.py:113"),
+    "K1": ("field_ops", "mont_mul_k1", ("k1_mul", "k1_mul_add", "k1_mul_sub"), "mont_mul.cu",
+           "ntt_tile.py:184"),
+    "K1as": ("field_ops", "add_sub_k1", ("k1as_add", "k1as_sub", "k1as_neg"), "mont_mul.cu",
+             "field_ops.py:99/106/115"),
+    "K2": ("ntt_tile", "_bntt_k2", ("k2_bntt",), "ntt.cu", "ntt_tile.py:126"),
+    "K3": ("msm_tile", "_accum_k3", ("k3_count", "k3_scan", "k3_scatter", "k3_msm_accum"), "msm.cu",
+           "msm_tile.py:531"),
+    "K4": ("msm_tile", "_lane_reduce_k4", ("k4_msm_reduce",), "msm.cu", "msm_tile.py:608"),
+    "K5": ("fixed_base", "_accumulate_k5", ("k5_fixed_base",), "fixed_base.cu", "fixed_base.py:119"),
+    "K6": ("msm_tile", "_msm_buckets_lanes_k6", ("k6_msm4_lanes",), "msm4.cu", "msm_tile.py:164"),
+    "K7": ("ntt_fast", "_butterfly_k7", ("k7_butterfly",), "ntt_fast.cu", "ntt_fast.py:158"),
+    "K8": ("ntt_fast", "_butterfly4_k8", ("k8_butterfly4",), "ntt_fast.cu", "ntt_fast.py:113"),
 }
-MAIN_PATH = ("K1", "K2", "K3", "K4", "K5")  # phase 3
+MAIN_PATH = ("K1", "K1as", "K2", "K3", "K4", "K5")  # phase 3
 ALT_PATH = ("K6", "K7", "K8")  # phase 4
+# sha256 of the k=20 BenchCircuit proof (seed b"chip-smoke"), taken on the
+# card from the tree before the K1/K3 redesign: the redesigned kernels must
+# leave every byte of the proof as it was
+PROOF_SHA256 = "1b562859a5b3ce535a9aadd41bb10f518633e8946def3f6714031413850433d3"
 
 
 def wrapper(key: str):
     mod, name = KERNELS[key][:2]
     return getattr(importlib.import_module(f"scroll_prover_tpu_torch.ops.{mod}"), name)
+
+
+def kernel_name(key: str) -> str:
+    return f"{key} {'/'.join(KERNELS[key][2])}"
+
+
+def reset_counts(fn) -> None:
+    fn.launches = 0
+    if hasattr(fn, "by_mode"):
+        fn.by_mode = dict.fromkeys(fn.by_mode, 0)
 
 
 def log(msg: str) -> None:
@@ -143,28 +166,40 @@ def _distinct_bytes(x) -> int:
     return 4 * n
 
 
-def work(key: str, *args, **kw):
+def k1_key(mode: int) -> str:
+    """K1 for the product modes of csrc/mont_mul.cu, K1as for add/sub/neg."""
+    from scroll_prover_tpu_torch.ops import field_ops as fo
+
+    return "K1" if mode in (fo.MUL, fo.MUL_ADD, fo.MUL_SUB) else "K1as"
+
+
+def work(key: str, *args):
     """(bytes, 32-bit multiplies) the kernel `key` must spend on the wrapper
     arguments `args`: each input read once, each output written once; the
     MSM kernels count the point adds these digits need (digit 0 adds
     nothing), as a 0-d device tensor, so that work() never waits for the
-    card; bound() reads it."""
-    if key == "K1":
-        a, b = args[1], args[2]
-        n = torch.broadcast_shapes(a.shape, b.shape).numel() // 16
-        return _distinct_bytes(a) + _distinct_bytes(b) + 64 * n, MULS_PER_MONT * n
+    card; bound() reads it. K1 and K1as take the arguments of
+    `field_ops._k1_launch` (field, mode, operands, limb axis), which every
+    mode passes through; an operand given twice (a squaring, z*z - z) is
+    read once. The product modes count one product per element, add, sub
+    and neg none: they are bytes-bound."""
+    if key in ("K1", "K1as"):
+        _f, mode, ops, _limb_axis = args
+        n = torch.broadcast_shapes(*(x.shape for x in ops)).numel() // 16
+        distinct = {(x.data_ptr(), tuple(x.shape), x.stride()): x for x in ops}.values()
+        return (sum(_distinct_bytes(x) for x in distinct) + 64 * n,
+                MULS_PER_MONT * n if k1_key(mode) == "K1" else 0)
     if key == "K2":
         v, tw, k = args
         return 8 * v.numel() + 4 * tw.numel(), MULS_PER_MONT * (v.numel() // 16) * k // 2
-    if key == "K3":
-        from scroll_prover_tpu_torch.ops.msm_tile import _slices
+    if key == "K3":  # output: the (CW, S, 32) per-slot buckets, 96 B each
+        from scroll_prover_tpu_torch.ops.msm_tile import _slots
 
-        px, py, digs, signs, B = args
+        pts, digs, signs, B = args
         CW, n = digs.shape
         live = (digs != 0).sum()
-        out_bytes = CW * _slices(n)[0] * (B - 1) * 96
-        return 4 * (px.numel() + py.numel() + digs.numel() + signs.numel()) + out_bytes, \
-            live * 11 * MULS_PER_MONT
+        out_bytes = CW * _slots(n) * (B - 1) * 96
+        return 4 * (pts.numel() + digs.numel() + signs.numel()) + out_bytes, live * 11 * MULS_PER_MONT
     if key == "K4":
         (tbl,) = args
         CW, S, NB = tbl.shape[:3]
@@ -185,6 +220,89 @@ def work(key: str, *args, **kw):
     return 2 * 64 * n + 64 * (n >> (s + 1)), MULS_PER_MONT * (n // 2) * per
 
 
+def check_k1(dev, gen, rows):
+    """Phase 2 for K1: every mode (the products a*b, a*b + c, a*b - c as
+    K1; a + b, a - b, -a as K1as) against its plain version, in every
+    operand layout the main path gives it, each at 2^23 Fr elements (the
+    extended quotient's column length): row-major (timed, in turns with the
+    plain version), a limb-major plane seen as (N, 16) (an NTT output before
+    its n^-1 scale), views with no single element stride, which the wrapper
+    copies (every operand at once, as the curve adds' slices are), a
+    stride-0 scalar (a challenge broadcast over a column;
+    in the a place for the fused modes, as axpy has it); the product also on
+    (16, N) planes with limb_axis=0 (the four-step twiddles); and Fq at 2^20
+    (the curve arithmetic). Each mode's row in `rows[key]["modes"]`; the
+    K1 row's headline is "mul", K1as's "add"."""
+    from scroll_prover_tpu_torch.fields.limbs import FQ_LIMB, FR_LIMB
+    from scroll_prover_tpu_torch.ops import field_ops as fo
+    from scroll_prover_tpu_torch.ops import ntt_tile as nt
+
+    def call(mode, f, x, y, z):
+        """(kernel closure, plain closure, wrapper key) of one mode."""
+        if mode in ("mul", "mul_add", "mul_sub"):
+            c = None if mode == "mul" else z
+            return (lambda: fo.mont_mul_k1(f, x, y, c=c, sub=mode == "mul_sub"),
+                    lambda: fo._mont_mul_plain(f, x, y) if c is None
+                    else fo._mont_mul_add_plain(f, x, y, c, sub=mode == "mul_sub"), "K1")
+        m = fo.MODE_NAMES.index(mode)
+        plain = {"add": fo._add_mod_plain, "sub": fo._sub_mod_plain}.get(mode)
+        if mode == "neg":
+            return lambda: fo.add_sub_k1(f, m, x), lambda: fo._neg_mod_plain(f, x), "K1as"
+        return lambda: fo.add_sub_k1(f, m, x, y), lambda: plain(f, x, y), "K1as"
+
+    n, nq = 1 << 23, 1 << 20
+    a, b, c = (rand_field(FR_LIMB, n, gen, dev) for _ in range(3))
+    a[:3] = 0  # -0 = 0
+    b[1] = 0
+    b[3] = a[3]  # a - b = 0
+    b[4] = fo._neg_mod_plain(FR_LIMB, a[4])  # a + b = p = 0
+    a[5] = fo._const(FR_LIMB, "p", dev)
+    a[5, 0] -= 1  # p - 1
+    s = rand_field(FR_LIMB, 1, gen, dev)[0]  # (16,)
+    lm = rand_field(FR_LIMB, n, gen, dev).T.contiguous()  # (16, 2^23) plane
+    lm_view = lm.T  # (2^23, 16), element stride 1
+    aq, bq, cq = (rand_field(FQ_LIMB, nq, gen, dev) for _ in range(3))
+    for key in ("K1", "K1as"):
+        rows[key] = {"modes": {}}
+    for mode in fo.MODE_NAMES:
+        kern, plain, key = call(mode, FR_LIMB, a, b, c)
+        k_ms, p_ms, ko, po = time_turns(kern, plain, 20)
+        errs = {"row-major 2^23": max_abs_err(ko, po)}
+        del ko, po
+        fused = mode in ("mul_add", "mul_sub")
+        cases = {
+            "limb-major view 2^23": (FR_LIMB, lm_view, b, c),
+            "copied views 2^22": (FR_LIMB, *(x.view(-1, 4, 16)[:, :2] for x in (a, b, c))),
+            "stride-0 scalar 2^23": (FR_LIMB, s, a, c) if fused else (FR_LIMB, a, s, c),
+            "Fq 2^20": (FQ_LIMB, aq, bq, cq),
+        }
+        for name, (f, x, y, z) in cases.items():
+            kern_l, plain_l, _ = call(mode, f, x, y, z)
+            errs[name] = max_abs_err(kern_l(), plain_l())
+        if mode == "mul":
+            errs["limb-major planes 2^23"] = max_abs_err(
+                fo.mont_mul_k1(FR_LIMB, lm, lm, limb_axis=0), nt._lm_mul_plain(lm, lm))
+        ops = {"mul_add": (a, b, c), "mul_sub": (a, b, c), "neg": (a,)}.get(mode, (a, b))
+        bd = bound(*work(key, FR_LIMB, fo.MODE_NAMES.index(mode), ops, -1))
+        err = max(errs.values())
+        rows[key]["modes"][mode] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bd[0], "bound_by": bd[1],
+                                    "max_abs_err": err}
+        log(f"{key} {mode}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms at 2^23, bound {bd[0]:.4f} ms "
+            f"({bd[1]}); max_abs_err by layout {json.dumps(errs)}")
+        if err != 0:
+            fail(f"{key} mode {mode} disagrees with its plain version")
+    # the card's own streaming rate at K1as's byte counts: int32 torch ops
+    # moving the same bytes (neg: one read, one write; add: two reads, one)
+    torch.neg(a), torch.add(a, b)
+    neg_ms, _ = event_ms(lambda: torch.neg(a), 20)
+    add_ms, _ = event_ms(lambda: torch.add(a, b), 20)
+    log(f"same bytes as K1as at 2^23 rows, torch int32 ops: neg {neg_ms:.4f} ms, add {add_ms:.4f} ms")
+    for key, head in (("K1", "mul"), ("K1as", "add")):
+        modes = rows[key]["modes"]
+        rows[key].update({k: v for k, v in modes[head].items()})
+        rows[key]["max_abs_err"] = max(m["max_abs_err"] for m in modes.values())
+
+
 def check_kernels(dev, gen):
     """Phase 2: every kernel against its plain version at main-path shapes."""
     from scroll_prover_tpu_torch.curves.bn254_curve import g1_generator, host_msm_jac
@@ -201,35 +319,12 @@ def check_kernels(dev, gen):
     def record(key, k_ms, p_ms, err, *args):
         b = bound(*work(key, *args))
         rows[key] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b[0], "bound_by": b[1]}
-        log(f"{key} {KERNELS[key][2]}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {b[0]:.4f} ms "
+        log(f"{kernel_name(key)}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {b[0]:.4f} ms "
             f"({b[1]}), max_abs_err {err}")
         if err != 0:
             fail(f"{key} disagrees with its plain version")
 
-    # K1: 2^23 rows of Fr (the n^-1 / coset scale of the 2^23 quotient); the
-    # main path's other operand layouts at 2^23 (limb-major planes of the
-    # four-step twiddle multiply, a (16,) scalar broadcast over a column with
-    # element stride 0); and a Fq batch. Each must match exactly; the row's
-    # max_abs_err is the largest over all four.
-    n = 1 << 23
-    a, b = rand_field(FR_LIMB, n, gen, dev), rand_field(FR_LIMB, n, gen, dev)
-    k_ms, p_ms, ko, po = time_turns(
-        lambda: fo.mont_mul_k1(FR_LIMB, a, b), lambda: fo._mont_mul_plain(FR_LIMB, a, b), 20)
-    errs = {"row-major 2^23": max_abs_err(ko, po)}
-    del ko, po
-    al, bl = a.T.contiguous(), b.T.contiguous()  # (16, 2^23) planes
-    errs["limb-major 2^23"] = max_abs_err(
-        fo.mont_mul_k1(FR_LIMB, al, bl, limb_axis=0), nt._lm_mul_plain(al, bl))
-    del al, bl
-    s = rand_field(FR_LIMB, 1, gen, dev)[0]  # (16,)
-    errs["scalar broadcast 2^23"] = max_abs_err(
-        fo.mont_mul_k1(FR_LIMB, a, s), fo._mont_mul_plain(FR_LIMB, a, s))
-    nq = 1 << 20
-    aq, bq = rand_field(FQ_LIMB, nq, gen, dev), rand_field(FQ_LIMB, nq, gen, dev)
-    errs["Fq 2^20"] = max_abs_err(fo.mont_mul_k1(FQ_LIMB, aq, bq), fo._mont_mul_plain(FQ_LIMB, aq, bq))
-    log(f"K1 max_abs_err by operand layout: {json.dumps(errs)}")
-    record("K1", k_ms, p_ms, max(errs.values()), FR_LIMB, a, b)
-    del a, b, aq, bq
+    check_k1(dev, gen, rows)
 
     # K2: one level of the 2^23 four-step, 2^15 rows x 256
     w8 = EvaluationDomain(8).omega
@@ -263,17 +358,17 @@ def check_kernels(dev, gen):
     scal = [rand_field(FR_LIMB, npts, gen, dev) for _ in range(cols)]
     scal[0][:7] = 0  # zero scalars land in no bucket
     W, B = mt._wb(mt.MSM_C)
-    px, py = mt._msm_prep_points(pts)
+    ptw = mt._msm_pack_points(pts)
     prepped = [mt._msm_prep_digits(s, mt.MSM_C) for s in scal]
     digs = torch.cat([d for d, _ in prepped])
     signs = torch.cat([s for _, s in prepped])
 
-    # K3
+    # K3: the raw per-slot tables, (86, 64, 32, 3, 8)
     k_ms, p_ms, k3o, p3o = time_turns(
-        lambda: mt._accum_k3(px, py, digs, signs, B),
-        lambda: mt._accum_v2_plain(px, py, digs, signs, B), 3)
-    record("K3", k_ms, p_ms, max_abs_err(k3o, p3o), px, py, digs, signs, B)
-    # K4 on K3's output
+        lambda: mt._accum_k3(ptw, digs, signs, B),
+        lambda: mt._accum_v2_plain(ptw, digs, signs, B), 3)
+    record("K3", k_ms, p_ms, max_abs_err(k3o, p3o), ptw, digs, signs, B)
+    # K4 on K3's output: log2(64) = 6 halving launches
     k_ms, p_ms, ko, po = time_turns(
         lambda: mt._lane_reduce_k4(k3o), lambda: mt._lane_reduce_plain(k3o), 3)
     record("K4", k_ms, p_ms, max_abs_err(ko, po), k3o)
@@ -354,6 +449,10 @@ def main_path(dev):
     if verify(srs, vk, instance, bytes(bad)):
         fail("a tampered k=20 proof verified")
     log(f"main path proof: {len(proof)} bytes, verify True, tampered proof rejected")
+    digest = hashlib.sha256(proof).hexdigest()
+    log(f"main path proof sha256: {digest} (pinned {PROOF_SHA256})")
+    if digest != PROOF_SHA256:
+        fail("the k=20 proof's bytes differ from the pinned proof")
     return secs, lambda: prove(srs, pk, circ, instance, seed=b"chip-smoke"), proof, srs
 
 
@@ -470,44 +569,87 @@ def v1_breakdown(base, cols) -> int:
     return err
 
 
+def k3_full_check(base, cols) -> int:
+    """Run after phase 4's launch counts are read. Holds K3 against its
+    plain version at the shape phase 4's v2 MSM gave it (the 4 columns'
+    172 column-windows x 2^20 points: 256 sort tiles, runs of ~2^15
+    entries), limb for limb, with its CUDA-event time beside its bound
+    there. Returns K3's max_abs_err."""
+    from scroll_prover_tpu_torch.ops import msm_tile as mt
+
+    _W, B = mt._wb(mt.MSM_C)
+    points, scalars = mt._pad_points_scalars(base, cols)
+    pts = mt._msm_pack_points(points)
+    prepped = [mt._msm_prep_digits(s, mt.MSM_C) for s in scalars]
+    digs = torch.cat([d for d, _ in prepped])
+    signs = torch.cat([s for _, s in prepped])
+    k3_ms, raw = event_ms(lambda: mt._accum_k3(pts, digs, signs, B), 2)
+    b3 = bound(*work("K3", pts, digs, signs, B))
+    p_ms, plain = wall_ms(lambda: mt._accum_v2_plain(pts, digs, signs, B))
+    err = max_abs_err(raw, plain)
+    log(f"K3 at phase 4's shape {tuple(digs.shape)}: {k3_ms:.3f} ms by CUDA events, bound {b3[0]:.3f} ms "
+        f"({b3[1]}); raw per-slot table vs plain version ({p_ms / 1e3:.1f} s wall): max_abs_err {err}")
+    if err != 0:
+        fail("K3 disagrees with its plain version at phase 4's shape")
+    return err
+
+
 @contextlib.contextmanager
 def bound_tally():
     """Wrap every kernel wrapper so that each call records work() on its
-    arguments (no wait for the card: the digit counts stay on the device).
-    Yields {key: [(bytes, multiplies) per call]}; convert it with
-    tally_bounds() once the traced work is over. A wrapper counts its
-    launches on the function its module's name points to, which while
-    wrapped is the wrapping function; on exit each count moves back to the
-    wrapper itself, so `wrapper(key).launches` counts every launch."""
+    arguments (no wait for the card: the digit counts stay on the device);
+    K1 and K1as are recorded, with their mode, at `field_ops._k1_launch`,
+    which all their calls pass through. Yields {key: [(mode or None, bytes,
+    multiplies) per call]}; convert it with tally_bounds() once the traced
+    work is over. A wrapper counts its launches on the function its
+    module's name points to, which while wrapped is the wrapping function;
+    on exit each count moves back to the wrapper itself, so
+    `wrapper(key).launches` counts every launch."""
+    from scroll_prover_tpu_torch.ops import field_ops as fo
+
     calls = {key: [] for key in KERNELS}
     saved = []
     for key, (mod_name, name, *_rest) in KERNELS.items():
+        if key in ("K1", "K1as"):
+            continue
         mod = importlib.import_module(f"scroll_prover_tpu_torch.ops.{mod_name}")
         orig = getattr(mod, name)
 
-        def tallied(*a, _orig=orig, _key=key, **kw):
-            calls[_key].append(work(_key, *a, **kw))
-            return _orig(*a, **kw)
+        def tallied(*a, _orig=orig, _key=key):
+            calls[_key].append((None, *work(_key, *a)))
+            return _orig(*a)
 
         tallied.launches = 0
         setattr(mod, name, tallied)
         saved.append((mod, name, orig, tallied))
+    k1_launch = fo._k1_launch
+
+    def k1_tallied(f, mode, ops, limb_axis):
+        calls[k1_key(mode)].append((fo.MODE_NAMES[mode], *work(k1_key(mode), f, mode, ops, limb_axis)))
+        return k1_launch(f, mode, ops, limb_axis)
+
+    fo._k1_launch = k1_tallied
     try:
         yield calls
     finally:
+        fo._k1_launch = k1_launch
         for mod, name, orig, tallied in saved:
             setattr(mod, name, orig)
             orig.launches += tallied.launches
 
 
 def tally_bounds(calls):
-    """{key: (summed bound ms, bytes ms, operations ms)} of bound_tally's
-    records."""
-    out = {}
+    """{key or (key, mode): (summed bound ms, bytes ms, operations ms)} of
+    bound_tally's records."""
+    groups = {}
     for key, rec in calls.items():
-        ms = [(by / HBM_BYTES_PER_S * 1e3, float(mu) / INT32_OPS_PER_S * 1e3) for by, mu in rec]
-        out[key] = (sum(max(tb, to) for tb, to in ms), sum(tb for tb, _ in ms), sum(to for _, to in ms))
-    return out
+        for mode, by, mu in rec:
+            ms = (by / HBM_BYTES_PER_S * 1e3, float(mu) / INT32_OPS_PER_S * 1e3)
+            groups.setdefault(key, []).append(ms)
+            if mode is not None:
+                groups.setdefault((key, mode), []).append(ms)
+    return {g: (sum(max(tb, to) for tb, to in ms), sum(tb for tb, _ in ms), sum(to for _, to in ms))
+            for g, ms in groups.items()}
 
 
 def profile_prove(run, proof, out_dir: str):
@@ -515,7 +657,8 @@ def profile_prove(run, proof, out_dir: str):
     torch.profiler (device kernel time; busy share = summed device time over
     the prove's wall time; per kernel, device time per launch beside the
     bound per launch at the shapes this prove gave it), one under cProfile
-    (host time by function)."""
+    (host time by function). Returns the per-launch table, keyed by kernel
+    and by "K1 <mode>" / "K1as <mode>"."""
     import cProfile
     import io
     import os
@@ -524,7 +667,7 @@ def profile_prove(run, proof, out_dir: str):
     os.makedirs(out_dir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for key in KERNELS:
-        wrapper(key).launches = 0
+        reset_counts(wrapper(key))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with bound_tally() as calls, torch.profiler.profile(activities=acts) as prof:
@@ -552,21 +695,32 @@ def profile_prove(run, proof, out_dir: str):
         f"{busy:.3f} s ({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for e in top:
         log(f"  device {dev_us(e) / 1e3:10.1f} ms  x{e.count:<6d} {e.key[:90]}")
+    ours = tuple(f"{c}(" for spec in KERNELS.values() for c in spec[2])
+    plain = [e for e in on_dev if not e.key.startswith(ours) and not e.key.startswith(("Memcpy", "Memset"))]
+    log(f"profile: plain torch device kernels {sum(e.count for e in plain)} launches, "
+        f"{sum(dev_us(e) for e in plain) / 1e3:.1f} ms; port kernels "
+        f"{sum(dev_us(e) for e in on_dev if e.key.startswith(ours)) / 1e3:.1f} ms")
+
+    def row(label, launches, names, bnd):
+        dev_ms = sum(dev_us(e) for e in on_dev if e.key.startswith(tuple(f"{c}(" for c in names))) / 1e3
+        by = "bytes" if bnd[1] >= bnd[2] else "operations"
+        log(f"  {label}: {launches} launches, device {dev_ms:.1f} ms, {dev_ms / launches:.4f} ms "
+            f"per launch, bound {bnd[0] / launches:.4f} ms per launch ({by})")
+        return {"launches": launches, "device_ms": dev_ms, "ms_per_launch": dev_ms / launches,
+                "bound_ms_per_launch": bnd[0] / launches, "bound_by": by}
+
     per_launch = {}
-    for key in KERNELS:
-        launches = wrapper(key).launches
-        if not launches:
+    for key, spec in KERNELS.items():
+        fn = wrapper(key)
+        if not fn.launches:
             continue
-        cname = KERNELS[key][2]
-        dev_ms = sum(dev_us(e) for e in on_dev if e.key.startswith(cname)) / 1e3
-        bnd, tb, to = totals[key]
-        per_launch[key] = {
-            "launches": launches, "device_ms": dev_ms, "ms_per_launch": dev_ms / launches,
-            "bound_ms_per_launch": bnd / launches, "bound_by": "bytes" if tb >= to else "operations",
-        }
-        log(f"  {key} {cname}: {launches} launches, device {dev_ms:.1f} ms, {dev_ms / launches:.4f} ms "
-            f"per launch, bound {bnd / launches:.4f} ms per launch ({per_launch[key]['bound_by']})")
+        per_launch[key] = row(kernel_name(key), fn.launches, spec[2], totals[key])
+        for (mode, launches), cname in zip(getattr(fn, "by_mode", {}).items(), spec[2]):
+            if launches:
+                per_launch[f"{key} {mode}"] = row(f"{key} {mode} {cname}", launches, (cname,),
+                                                  totals[(key, mode)])
     log(f"profile per-launch: {json.dumps(per_launch)}")
+    prove_stats = per_launch
 
     pr = cProfile.Profile()
     t0 = time.perf_counter()
@@ -586,20 +740,23 @@ def profile_prove(run, proof, out_dir: str):
     rows = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)[:15]
     for (fn, line, name), (_cc, nc, tt, ct, _callers) in rows:
         log(f"  host {tt:8.3f} s own {ct:8.3f} s cum x{nc:<8d} {os.path.basename(fn)}:{line} {name}")
+    return prove_stats
 
 
 def counted(keys, fn):
     """Run fn with the launch counts of `keys` set to 0 just before; returns
-    (fn's result, {key: launches during fn}). Fails if one stayed at 0."""
+    (fn's result, {key: launches during fn}, {key: {mode: launches}} for
+    K1's modes). Fails if one stayed at 0."""
     counters = {key: wrapper(key) for key in keys}
     for c in counters.values():
-        c.launches = 0
+        reset_counts(c)
     out = fn()
     launches = {key: c.launches for key, c in counters.items()}
+    by_mode = {key: dict(c.by_mode) for key, c in counters.items() if hasattr(c, "by_mode")}
     missing = [key for key, v in launches.items() if not v]
     if missing:
         fail(f"the path never launched {missing}")
-    return out, launches
+    return out, launches, by_mode
 
 
 def main() -> None:
@@ -635,27 +792,35 @@ def main() -> None:
     if not args.skip_main:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        (secs, prove_again, proof, srs), main_launches = counted(MAIN_PATH, lambda: main_path(dev))
+        (secs, prove_again, proof, srs), main_launches, by_mode = counted(MAIN_PATH, lambda: main_path(dev))
         launches.update(main_launches)
+        for key, modes in by_mode.items():
+            for mode, v in modes.items():
+                rows[key]["modes"][mode]["launches"] = v
         peak_dev = torch.cuda.max_memory_allocated()
         rss_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         log(f"main path seconds: {json.dumps(secs)}")
         log(f"main path peak device memory {peak_dev / 2**30:.2f} GiB; peak host RSS {rss_kib / 2**20:.2f} GiB")
-        log(f"main path launches: {json.dumps(main_launches)}")
+        log(f"main path launches: {json.dumps(main_launches)}; K1 by mode: {json.dumps(by_mode)}")
 
         t0 = time.perf_counter()
-        cols, alt_launches = counted(ALT_PATH, lambda: alt_engines(dev, gen, srs))
+        cols, alt_launches, _ = counted(ALT_PATH, lambda: alt_engines(dev, gen, srs))
         launches.update(alt_launches)
         log(f"phase 4: {time.perf_counter() - t0:.1f} s; launches: {json.dumps(alt_launches)}")
         err6 = v1_breakdown(srs.dev_powers(), cols)
         rows["K6"]["max_abs_err"] = max(rows["K6"]["max_abs_err"], err6)
-        if args.profile:
-            profile_prove(prove_again, proof, args.profile)
+        err3 = k3_full_check(srs.dev_powers(), cols)
+        rows["K3"]["max_abs_err"] = max(rows["K3"]["max_abs_err"], err3)
+        if args.profile:  # the profiled prove's launches and device time, by K1 mode too
+            for label, st in profile_prove(prove_again, proof, args.profile).items():
+                key, _, mode = label.partition(" ")
+                target = rows[key]["modes"][mode] if mode else rows[key]
+                target.update({"prove_launches": st["launches"], "prove_device_ms": st["device_ms"]})
 
     kernels = []
-    for key, (_mod, _fn, cname, src, rep) in KERNELS.items():
+    for key, (_mod, _fn, _cnames, src, rep) in KERNELS.items():
         kernels.append({
-            "name": f"{key} {cname}", "route": "cuda", "source": f"scroll_prover_tpu_torch/csrc/{src}",
+            "name": kernel_name(key), "route": "cuda", "source": f"scroll_prover_tpu_torch/csrc/{src}",
             "replaces": f"scroll_prover_tpu/ops/{rep}", "launches": launches[key], **rows[key],
             "library_ms": None,
         })

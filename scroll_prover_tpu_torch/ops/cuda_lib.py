@@ -41,11 +41,10 @@ class FieldParams(ctypes.Structure):
 
 
 class CurveParams(ctypes.Structure):
-    """BN254 G1 over Fq: field params plus Montgomery b3 = 9 and one."""
+    """BN254 G1 over Fq: field params plus Montgomery one."""
 
     _fields_ = [
         ("fq", FieldParams),
-        ("b3", ctypes.c_uint32 * 8),
         ("one", ctypes.c_uint32 * 8),
     ]
 
@@ -74,11 +73,7 @@ def curve_params() -> CurveParams:
         p = FQ_LIMB.modulus
         r = (1 << 256) % p
         _CURVE.append(
-            CurveParams(
-                field_params(FQ_LIMB),
-                (ctypes.c_uint32 * 8)(*_words(9 * r % p)),
-                (ctypes.c_uint32 * 8)(*_words(r)),
-            )
+            CurveParams(field_params(FQ_LIMB), (ctypes.c_uint32 * 8)(*_words(r)))
         )
     return _CURVE[0]
 
@@ -138,10 +133,12 @@ _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 # C entry signatures (csrc/*.cu); every pointer and the stream is c_void_p
 _SIGS = {
-    "mont_mul": {"spt_mont_mul": [_VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _LL, _LL, FieldParams, _VP]},
+    "mont_mul": {
+        "spt_field": [_INT, _VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _LL, FieldParams, _VP],
+    },
     "ntt": {"spt_bntt": [_VP, _VP, _VP, _INT, _LL, FieldParams, _VP]},
     "msm": {
-        "spt_msm_accum": [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, CurveParams, _VP],
+        "spt_msm_accum": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _INT, CurveParams, _VP],
         "spt_msm_reduce": [_VP, _VP, _LL, _LL, CurveParams, _VP],
     },
     "fixed_base": {"spt_fixed_base": [_VP, _VP, _VP, _LL, CurveParams, _VP]},

@@ -2,13 +2,15 @@
 
 Field elements are int32 tensors of shape (..., 16) holding 16-bit limbs,
 little-endian (fields/limbs.py): the JAX package's layout, so the tests
-compare like with like. add/sub/neg are plain PyTorch on either device.
+compare like with like.
 
-The Montgomery product is kernel K1 on the card: a CUDA tensor goes through
-`mont_mul_k1` (csrc/mont_mul.cu), for Fr and for Fq with the modulus passed
-in; a CPU tensor goes through `_mont_mul_plain`, a lazy-carry CIOS in int64.
-On the card a plain-torch CIOS is ~250 small launches per product, and the
-prover calls the product thousands of times.
+Every elementwise field op is kernel K1 on the card (csrc/mont_mul.cu), one
+launch per call, for Fr and for Fq with the modulus passed in: a CUDA tensor
+goes through `mont_mul_k1` (the product modes: a*b, a*b + c, a*b - c) or
+`add_sub_k1` (a + b, a - b, -a); a CPU tensor goes through the plain
+versions, a lazy-carry CIOS in int64 and 16-step limb carry chains. On the
+card a plain-torch CIOS is ~250 small launches per product and a carry chain
+~35, and the prover calls them thousands of times.
 
 Every output is canonical (< p), so the kernel, the plain version and the JAX
 package agree bit for bit whatever algorithm each uses inside.
@@ -72,21 +74,21 @@ def _cond_sub_p(f: LimbField, t, extra):
     return torch.where(take[..., None], d, t)
 
 
-def add_mod(f: LimbField, a, b):
-    """(a + b) mod p; inputs canonical."""
+def _add_mod_plain(f: LimbField, a, b):
+    """Plain K1as add: (a + b) mod p; inputs canonical."""
     s, c = _carry(a + b)
     return _cond_sub_p(f, s, c)
 
 
-def sub_mod(f: LimbField, a, b):
-    """(a - b) mod p; inputs canonical."""
+def _sub_mod_plain(f: LimbField, a, b):
+    """Plain K1as sub: (a - b) mod p; inputs canonical."""
     d, brw = _sub_raw(a, b)
     dp, _ = _carry(d + _const(f, "p", d.device))
     return torch.where((brw > 0)[..., None], dp, d)
 
 
-def neg_mod(f: LimbField, a):
-    """(-a) mod p; maps 0 -> 0."""
+def _neg_mod_plain(f: LimbField, a):
+    """Plain K1as neg: (-a) mod p; maps 0 -> 0."""
     d, _ = _sub_raw(_const(f, "p", a.device).expand_as(a), a)
     return torch.where(is_zero(a)[..., None], a, d)
 
@@ -134,60 +136,138 @@ def _mont_mul_plain(f: LimbField, a, b):
     return out.reshape(shape)
 
 
+def _mont_mul_add_plain(f: LimbField, a, b, c, sub: bool = False):
+    """Plain K1 a*b + c (or a*b - c with sub)."""
+    ab = _mont_mul_plain(f, a, b)
+    return _sub_mod_plain(f, ab, c) if sub else _add_mod_plain(f, ab, c)
+
+
+# --- K1: the elementwise field kernel ------------------------------------------
+
+# modes of csrc/mont_mul.cu; the first three are the product (K1), the rest
+# its neighbours without a product (K1as)
+MUL, MUL_ADD, MUL_SUB, ADD, SUB, NEG = range(6)
+MODE_NAMES = ("mul", "mul_add", "mul_sub", "add", "sub", "neg")
+
+
 def _operand(x: torch.Tensor, limb_axis: int):
-    """(tensor, element stride, limb stride) for K1's strided loads: a
-    contiguous tensor, or one broadcast along every element axis (stride 0,
-    e.g. a scalar expanded over a column), is passed as it is; anything else
-    is made contiguous first."""
-    lead = [s for i, s in enumerate(x.stride()) if i != (limb_axis % x.dim())]
-    ls = x.stride(limb_axis)
-    if x.is_contiguous():
-        return x, (1 if limb_axis == 0 else N_LIMBS), ls
-    if all(s == 0 for s in lead):
+    """(tensor, element stride, limb stride) for K1's loads. The elements
+    (every axis but the limb axis, in order) must sit at one stride from one
+    another: a contiguous (..., 16) tensor (16), a limb-major plane or a
+    transposed view of one (1), a broadcast along every element axis (0, e.g.
+    a scalar expanded over a column). Anything else is made contiguous."""
+    ax = limb_axis % x.dim()
+    ls = x.stride(ax)
+    dims = [(s, st) for i, (s, st) in enumerate(zip(x.shape, x.stride())) if i != ax and s != 1]
+    if all(st == 0 for _, st in dims):
         return x, 0, ls
-    x = x.contiguous()
-    return x, (1 if limb_axis == 0 else N_LIMBS), x.stride(limb_axis)
+    es = expect = dims[-1][1]
+    for size, st in reversed(dims):
+        if st != expect:
+            x = x.contiguous()
+            return x, (1 if ax == 0 else N_LIMBS), x.stride(ax)
+        expect *= size
+    return x, es, ls
 
 
-def mont_mul_k1(f: LimbField, a, b, limb_axis: int = -1):
-    """K1 wrapper: elementwise Montgomery product on the card.
+def _k1_launch(f: LimbField, mode: int, ops, limb_axis: int):
+    """One K1 launch of `mode` on the broadcast operands `ops` (1 to 3 int32
+    CUDA tensors); returns a new contiguous tensor of their shape."""
+    if not all(x.is_cuda for x in ops):
+        raise ValueError("K1 takes CUDA tensors")
+    if any(x.dtype != LIMB_DTYPE for x in ops):
+        raise TypeError("limb tensors must be int32")
+    ops = torch.broadcast_tensors(*ops)
+    shape = ops[0].shape
+    if shape[limb_axis] != N_LIMBS or (limb_axis == 0 and len(shape) != 2):
+        raise ValueError(f"bad limb layout {tuple(shape)} for limb_axis={limb_axis}")
+    n = ops[0].numel() // N_LIMBS
+    out = torch.empty(shape, dtype=LIMB_DTYPE, device=ops[0].device)
+    if n == 0:
+        return out
+    # the operands as the kernel reads them; the list keeps any contiguous
+    # copy alive until the launch is queued
+    held = [_operand(x, limb_axis) for x in (*ops, *(ops[0],) * (3 - len(ops)))]  # unused: a again
+    args = [v for x, es, ls in held for v in (x.data_ptr(), es, ls)]
+    o_es, o_ls = (1, n) if limb_axis == 0 else (N_LIMBS, 1)
+    rc = cuda_lib.lib("mont_mul").spt_field(
+        mode, out.data_ptr(), o_es, o_ls, *args, n,
+        cuda_lib.field_params(f), cuda_lib.stream_ptr(out),
+    )
+    cuda_lib.check(rc, f"K1 {MODE_NAMES[mode]}")
+    return out
+
+
+def mont_mul_k1(f: LimbField, a, b, limb_axis: int = -1, c=None, sub: bool = False):
+    """K1 wrapper, product modes: a*b, or a*b + c (a*b - c with sub), on the
+    card.
 
     Replaces ops/ntt_tile.py `_mul_kernel` (called through `lm_mul`) of the JAX
     package. limb_axis=-1 takes (..., 16) row-major operands (field_ops
     callers); limb_axis=0 takes (16, N) limb-major planes (the NTT engine).
-    Launch count: `mont_mul_k1.launches`."""
-    if not (a.is_cuda and b.is_cuda):
-        raise ValueError("mont_mul_k1 takes CUDA tensors")
-    if a.dtype != LIMB_DTYPE or b.dtype != LIMB_DTYPE:
-        raise TypeError("limb tensors must be int32")
-    a, b = torch.broadcast_tensors(a, b)
-    if a.shape[limb_axis] != N_LIMBS or (limb_axis == 0 and a.dim() != 2):
-        raise ValueError(f"bad limb layout {tuple(a.shape)} for limb_axis={limb_axis}")
-    n = a.numel() // N_LIMBS
-    out = torch.empty(a.shape, dtype=LIMB_DTYPE, device=a.device)
-    if n == 0:
-        return out
-    a, a_es, a_ls = _operand(a, limb_axis)
-    b, b_es, b_ls = _operand(b, limb_axis)
-    o_es, o_ls = (1, n) if limb_axis == 0 else (N_LIMBS, 1)
-    rc = cuda_lib.lib("mont_mul").spt_mont_mul(
-        out.data_ptr(), a.data_ptr(), b.data_ptr(), n,
-        a_es, a_ls, b_es, b_ls, o_es, o_ls,
-        cuda_lib.field_params(f), cuda_lib.stream_ptr(out),
-    )
-    cuda_lib.check(rc, "K1 mont_mul")
-    mont_mul_k1.launches += 1
+    Launch count: `mont_mul_k1.launches`, by mode in `mont_mul_k1.by_mode`."""
+    mode = MUL if c is None else MUL_SUB if sub else MUL_ADD
+    out = _k1_launch(f, mode, (a, b) if c is None else (a, b, c), limb_axis)
+    if out.numel():
+        mont_mul_k1.launches += 1
+        mont_mul_k1.by_mode[MODE_NAMES[mode]] += 1
     return out
 
 
 mont_mul_k1.launches = 0
+mont_mul_k1.by_mode = dict.fromkeys(MODE_NAMES[:3], 0)
+
+
+def add_sub_k1(f: LimbField, mode: int, a, b=None):
+    """K1 wrapper, modes without a product: a + b (ADD), a - b (SUB), -a
+    (NEG), on the card.
+
+    Replaces the JAX package's plain ops/field_ops.py `add_mod`, `sub_mod`
+    and `neg_mod` (no Pallas kernel). Launch count: `add_sub_k1.launches`,
+    by mode in `add_sub_k1.by_mode`."""
+    if mode not in (ADD, SUB, NEG) or (b is None) != (mode == NEG):
+        raise ValueError(f"add_sub_k1 takes ADD or SUB with two operands, NEG with one (mode {mode})")
+    out = _k1_launch(f, mode, (a,) if b is None else (a, b), -1)
+    if out.numel():
+        add_sub_k1.launches += 1
+        add_sub_k1.by_mode[MODE_NAMES[mode]] += 1
+    return out
+
+
+add_sub_k1.launches = 0
+add_sub_k1.by_mode = dict.fromkeys(MODE_NAMES[3:], 0)
+
+
+def _on_card(*xs) -> bool:
+    return any(x.is_cuda for x in xs)
+
+
+def add_mod(f: LimbField, a, b):
+    """(a + b) mod p; inputs canonical; broadcasts."""
+    return add_sub_k1(f, ADD, a, b) if _on_card(a, b) else _add_mod_plain(f, a, b)
+
+
+def sub_mod(f: LimbField, a, b):
+    """(a - b) mod p; inputs canonical; broadcasts."""
+    return add_sub_k1(f, SUB, a, b) if _on_card(a, b) else _sub_mod_plain(f, a, b)
+
+
+def neg_mod(f: LimbField, a):
+    """(-a) mod p; maps 0 -> 0."""
+    return add_sub_k1(f, NEG, a) if a.is_cuda else _neg_mod_plain(f, a)
 
 
 def mont_mul(f: LimbField, a, b):
     """Montgomery product a*b*R^-1 mod p, canonical; broadcasts."""
-    if a.is_cuda or b.is_cuda:
-        return mont_mul_k1(f, a, b)
-    return _mont_mul_plain(f, a, b)
+    return mont_mul_k1(f, a, b) if _on_card(a, b) else _mont_mul_plain(f, a, b)
+
+
+def mont_mul_add(f: LimbField, a, b, c, sub: bool = False):
+    """a*b + c (a*b - c with sub), Montgomery, canonical; broadcasts. One
+    K1 launch on the card."""
+    if _on_card(a, b, c):
+        return mont_mul_k1(f, a, b, c=c, sub=sub)
+    return _mont_mul_add_plain(f, a, b, c, sub)
 
 
 # the JAX package routes huge Fr arrays through the tiled kernel here; K1

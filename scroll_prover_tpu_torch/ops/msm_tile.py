@@ -4,11 +4,16 @@ K4, the host-side digit prep and the host window fold) and its v1 pipeline
 
 v2, the pipeline kzg_commit uses:
 
+    points --_msm_pack_points--> packed affine table (n, 2, 8) words
     scalars --_msm_prep_digits--> signed c-bit digits (W, n)
-    K3 `_accum_v2`:    thread (column-window cw, slice s) walks points
-                       i = s, s + S, s + 2S, ... and mixed-adds each into its
-                       private bucket |digit| (y negated by the sign; digit 0
-                       skipped) -> per-slice buckets (CW, S, B-1, 3, 8) words
+    K3 `_accum_v2`:    a counting sort of every column-window cw's live
+                       points by bucket |digit| (digit 0 skipped) into runs
+                       in ascending point order; run entry j of bucket b
+                       goes to slot j mod 4S, a thread per (cw, b, slot)
+                       mixed-adds its entries in order with the bucket in
+                       registers (y negated by the sign), and slots s,
+                       s + S, s + 2S, s + 3S fold into s -> per-slot
+                       buckets (CW, S, B-1, 3, 8) words, S <= 64 slots
     K4 `_lane_reduce`: log2(S) halving rounds of complete projective adds
                        -> one bucket table (CW, B, 3, 16) limbs
     host `_host_fold_mont`: suffix sums and the window fold on Python ints,
@@ -16,8 +21,9 @@ v2, the pipeline kzg_commit uses:
 
 Blocks on Hopper run in no order, so no bucket is carried from block to
 block as the TPU kernel carried its VMEM buckets along the sequential grid:
-every (cw, s) owns its buckets, and K4 sums them in a fixed tree. The order
-of additions is the same in the kernels and their plain versions, so their
+every (cw, slot, bucket) owns its bucket, and K4 sums the slots in a fixed
+tree. The order of additions is the same in the kernels and their plain
+versions (per (cw, slot, bucket), ascending point index), so their
 projective buckets agree exactly; the folded affine point agrees with the
 JAX package and with host Pippenger.
 
@@ -47,7 +53,10 @@ from .msm import B4, C4, W4, _fold_windows, _signed_digits4, _weighted_windows
 
 FQ = FQ_LIMB
 MSM_C = 6  # signed 6-bit windows: 43 windows x 33 buckets
-PTS_PER_SLICE = 256  # points each K3 thread walks
+K3_MAX_SLOTS = 64  # S: slots per bucket run, so K4 takes log2(S) <= 6 rounds
+K3_MIN_POINTS = 1024  # column points per slot at the least (S = 64 from n = 2^16 up)
+K3_TILE = 4096  # points per counting-sort tile (csrc/msm.cu)
+K3_FOLD = 4  # accumulating slots per output slot (csrc/msm.cu)
 
 
 def _wb(c: int):
@@ -58,18 +67,19 @@ def _wb(c: int):
     return W, B
 
 
-def _slices(n: int):
-    """(S, P): S slices, a power of two so K4 halves evenly, of P points."""
-    S = 1 << max(0, (-(-n // PTS_PER_SLICE) - 1).bit_length())
-    return S, -(-n // S)
+def _slots(n: int) -> int:
+    """S: slots per bucket run of an n-point column, a power of two so K4
+    halves evenly."""
+    S = 1
+    while S < K3_MAX_SLOTS and n >= 2 * S * K3_MIN_POINTS:
+        S *= 2
+    return S
 
 
-def _msm_prep_points(points_affine_mont):
-    """(n, 2, 16) Montgomery affine -> px, py limb-major (16, n)."""
-    return (
-        points_affine_mont[:, 0, :].T.contiguous(),
-        points_affine_mont[:, 1, :].T.contiguous(),
-    )
+def _msm_pack_points(points_affine_mont):
+    """(n, 2, 16) Montgomery affine limbs -> the packed affine table K3
+    reads: (n, 2, 8) 32-bit words, 64 B per point."""
+    return limbs_to_words(points_affine_mont).contiguous()
 
 
 def _msm_prep_digits(scalar_limbs, c: int):
@@ -107,62 +117,78 @@ def _pad_points_scalars(points, scalars_list):
     return points, out
 
 
-# --- K3: per-slice bucket accumulation ----------------------------------------
+# --- K3: bucket sort and per-slot accumulation --------------------------------
 
 
-def _accum_v2_plain(px, py, digs, signs, B: int):
-    """Plain K3: the same walk vectorized over (cw, s), one point step at a
-    time; returns bucket words (CW, S, B-1, 3, 8)."""
+def _accum_v2_plain(pts, digs, signs, B: int):
+    """Plain K3, in K3's order: every live (cw, point) joins the run of
+    (cw, bucket |digit|) in ascending point index; run entry j goes to slot
+    u = j mod 4S, and step k mixed-adds, for every (cw, slot, bucket) at
+    once, its entry j = 4S k + u; then output slot s = (u_s + u_{s+2S}) +
+    (u_{s+S} + u_{s+3S}) in complete adds. pts (n, 2, 8) words; returns
+    bucket words (CW, S, B-1, 3, 8)."""
     CW, n = digs.shape
-    S, P = _slices(n)
+    S = _slots(n)
+    SF = S * K3_FOLD
     NB = B - 1
-    dev = px.device
-    pad = S * P - n
-    if pad:
-        digs = torch.cat([digs, digs.new_zeros(CW, pad)], dim=1)
-        signs = torch.cat([signs, signs.new_zeros(CW, pad)], dim=1)
-        px = torch.cat([px, px.new_zeros(N_LIMBS, pad)], dim=1)
-        py = torch.cat([py, py.new_zeros(N_LIMBS, pad)], dim=1)
-    acc = ec.identity((CW * S * NB,), device=dev)
-    X, Y, Z = acc.x, acc.y, acc.z
-    owner = torch.arange(CW * S, device=dev)  # = cw * S + s
-    for t in range(P):
-        d = digs[:, t * S : (t + 1) * S].reshape(-1)
-        live = torch.nonzero(d).squeeze(1)
-        if live.numel() == 0:
-            continue
-        rows = owner[live] * NB + d[live].to(torch.int64) - 1
-        i = t * S + live % S  # point index of each live entry
-        qx = px[:, i].T
-        qy = py[:, i].T
-        sg = signs[:, t * S : (t + 1) * S].reshape(-1)[live] != 0
-        qy = fo.select(sg, fo.neg_mod(FQ, qy), qy)
-        nxt = ec.madd(ec.PointP(X[rows], Y[rows], Z[rows]), qx, qy)
-        X[rows], Y[rows], Z[rows] = nxt.x, nxt.y, nxt.z
-    tbl = torch.stack([X, Y, Z], dim=1).reshape(CW, S, NB, 3, N_LIMBS)
-    return limbs_to_words(tbl)
+    dev = digs.device
+    X, Y, Z = ec.identity((CW * SF * NB,), device=dev)
+    cw, i = torch.nonzero(digs, as_tuple=True)  # ascending (cw, i)
+    if i.numel():
+        d = digs[cw, i].to(torch.int64) - 1
+        neg = signs[cw, i] != 0
+        g, order = torch.sort(cw * NB + d, stable=True)  # runs, each in ascending i
+        i, neg = i[order], neg[order]
+        at = torch.arange(g.numel(), device=dev)
+        first = torch.ones_like(g, dtype=torch.bool)
+        first[1:] = g[1:] != g[:-1]
+        j = at - torch.cummax(torch.where(first, at, 0), 0).values  # entry index in its run
+        rows = ((g // NB) * SF + j % SF) * NB + g % NB  # (cw, slot, bucket)
+        step = j // SF
+        q = words_to_limbs(pts)
+        for k in range(int(step.max()) + 1):
+            sel = step == k
+            r, ii = rows[sel], i[sel]
+            qy = fo.select(neg[sel], fo.neg_mod(FQ, q[ii, 1]), q[ii, 1])
+            nxt = ec.madd(ec.PointP(X[r], Y[r], Z[r]), q[ii, 0], qy)
+            X[r], Y[r], Z[r] = nxt.x, nxt.y, nxt.z
+    t = ec.PointP(*(c.reshape(CW, SF, NB, N_LIMBS) for c in (X, Y, Z)))
+    while t.x.shape[1] > S:  # fold: slot u < h adds slot u + h, h = 2S, S
+        h = t.x.shape[1] // 2
+        t = ec.add(ec.PointP(*(c[:, :h] for c in t)), ec.PointP(*(c[:, h:] for c in t)))
+    return limbs_to_words(torch.stack(list(t), dim=3))
 
 
-def _accum_k3(px, py, digs, signs, B: int):
-    """K3 wrapper: one CUDA thread per (column-window, slice), private
-    buckets in device memory.
+def _accum_k3(pts, digs, signs, B: int):
+    """K3 wrapper: a counting sort of the live points into bucket runs, then
+    one CUDA thread per (column-window, bucket, slot) with its bucket in
+    registers, four slots folded into each output slot; four kernels, one
+    call.
 
     Replaces ops/msm_tile.py `_msm_accum_kernel` (called through `_accum_v2`) of
     the JAX package. Launch count: `_accum_k3.launches`."""
     CW, n = digs.shape
-    for t in (px, py, digs, signs):
+    for t in (pts, digs, signs):
         if not t.is_cuda or t.dtype != LIMB_DTYPE:
             raise ValueError("_accum_k3 takes int32 CUDA tensors")
-    if px.shape != (N_LIMBS, n) or py.shape != (N_LIMBS, n) or signs.shape != (CW, n):
+    if pts.shape != (n, 2, 8) or signs.shape != (CW, n):
         raise ValueError("bad K3 operand shapes")
-    if B != (1 << (MSM_C - 1)) + 1:
-        raise ValueError(f"K3 is built for c={MSM_C} (B={(1 << (MSM_C - 1)) + 1})")
-    S, P = _slices(n)
-    px, py, digs, signs = (t.contiguous() for t in (px, py, digs, signs))
-    out = torch.empty((CW, S, B - 1, 3, 8), dtype=LIMB_DTYPE, device=px.device)
+    if B != (1 << (MSM_C - 1)) + 1 or n >= 1 << 31:
+        raise ValueError(f"K3 is built for c={MSM_C} (B={(1 << (MSM_C - 1)) + 1}) and n < 2^31")
+    S, NB = _slots(n), B - 1
+    tiles = -(-n // K3_TILE)
+    pts, digs, signs = (t.contiguous() for t in (pts, digs, signs))
+    if pts.data_ptr() % 16:
+        raise ValueError("K3 reads the point table with 16-byte loads: it must be 16-byte aligned")
+    dev = pts.device
+    out = torch.empty((CW, S, NB, 3, 8), dtype=LIMB_DTYPE, device=dev)
+    perm = torch.empty((CW, n), dtype=LIMB_DTYPE, device=dev)  # bucket runs
+    cnt = torch.empty((CW, NB, tiles), dtype=LIMB_DTYPE, device=dev)  # counts, then run offsets
+    run = torch.empty((CW, NB, 2), dtype=LIMB_DTYPE, device=dev)  # run start and length
     rc = cuda_lib.lib("msm").spt_msm_accum(
-        out.data_ptr(), px.data_ptr(), py.data_ptr(), digs.data_ptr(), signs.data_ptr(),
-        n, CW, S, P, cuda_lib.curve_params(), cuda_lib.stream_ptr(out),
+        out.data_ptr(), pts.data_ptr(), digs.data_ptr(), signs.data_ptr(),
+        perm.data_ptr(), cnt.data_ptr(), run.data_ptr(),
+        n, CW, S, tiles, cuda_lib.curve_params(), cuda_lib.stream_ptr(out),
     )
     cuda_lib.check(rc, "K3 msm_accum")
     _accum_k3.launches += 1
@@ -172,14 +198,14 @@ def _accum_k3(px, py, digs, signs, B: int):
 _accum_k3.launches = 0
 
 
-def _accum_v2(px, py, digs, signs, B: int):
-    """px/py (16, n); digs/signs (CW, n) -> per-slice bucket words."""
-    if px.is_cuda:
-        return _accum_k3(px, py, digs, signs, B)
-    return _accum_v2_plain(px, py, digs, signs, B)
+def _accum_v2(pts, digs, signs, B: int):
+    """pts (n, 2, 8) words; digs/signs (CW, n) -> per-slot bucket words."""
+    if pts.is_cuda:
+        return _accum_k3(pts, digs, signs, B)
+    return _accum_v2_plain(pts, digs, signs, B)
 
 
-# --- K4: slice reduction ----------------------------------------------------
+# --- K4: slot reduction -----------------------------------------------------
 
 
 def _lane_reduce_plain(tbl):
@@ -198,7 +224,7 @@ def _lane_reduce_plain(tbl):
 
 def _lane_reduce_k4(tbl):
     """K4 wrapper: each halving round is one launch, one thread per
-    (cw, s, bucket) summing slices s and s + S/2.
+    (cw, s, bucket) summing slots s and s + S/2.
 
     Replaces ops/msm_tile.py `_lane_reduce_kernel` (called through
     `_lane_reduce_v2`) of the JAX package. Launch count:
@@ -207,7 +233,7 @@ def _lane_reduce_k4(tbl):
         raise ValueError("_lane_reduce_k4 takes (CW, S, NB, 3, 8) int32 CUDA words")
     CW, S = tbl.shape[:2]
     if S & (S - 1):
-        raise ValueError("K4 needs a power-of-two slice count")
+        raise ValueError("K4 needs a power-of-two slot count")
     lib = cuda_lib.lib("msm")
     tbl = tbl.contiguous()
     while S > 1:
@@ -227,7 +253,7 @@ _lane_reduce_k4.launches = 0
 
 
 def _lane_reduce_v2(tbl):
-    """(CW, S, B-1, 3, 8) per-slice bucket words -> (CW, B, 3, 16) limb
+    """(CW, S, B-1, 3, 8) per-slot bucket words -> (CW, B, 3, 16) limb
     table with bucket 0 the identity (0, 1, 0) (the fold never reads it)."""
     red = _lane_reduce_k4(tbl) if tbl.is_cuda else _lane_reduce_plain(tbl)
     limbs = words_to_limbs(red[:, 0])  # (CW, NB, 3, 16)
@@ -305,11 +331,11 @@ def msm_v2_host_batch(points_affine_mont, scalar_limbs_list):
     None)."""
     W, B = _wb(MSM_C)
     points, scalars = _pad_points_scalars(points_affine_mont, scalar_limbs_list)
-    px, py = _msm_prep_points(points)
+    pts = _msm_pack_points(points)
     prepped = [_msm_prep_digits(sl, MSM_C) for sl in scalars]
     digs = torch.cat([d for d, _ in prepped])  # (C*W, n)
     signs = torch.cat([s for _, s in prepped])
-    tbl = _lane_reduce_v2(_accum_v2(px, py, digs, signs, B))
+    tbl = _lane_reduce_v2(_accum_v2(pts, digs, signs, B))
     tbl_h = limbs_from_torch(tbl).reshape(len(scalars), W, B, 3, N_LIMBS)
     return [_host_fold_mont(t, MSM_C) for t in tbl_h]
 

@@ -27,12 +27,12 @@ F = FR_LIMB
 
 
 def _add(a, b):
-    return fo.add_mod(F, a, b)
+    return fo._add_mod_plain(F, a, b)
 
 
 def _dmul(a, b, t):
     """(a - b) * t."""
-    return fo._mont_mul_plain(F, fo.sub_mod(F, a, b), t)
+    return fo._mont_mul_plain(F, fo._sub_mod_plain(F, a, b), t)
 
 
 def _check(x, tw, s: int, levels: int, name: str):

@@ -55,8 +55,8 @@ def _bntt_plain(v, twpease, k: int):
     for s in range(k):
         tw = twpease[s].T  # (h, 16)
         u, w = x[:, :h], x[:, h:]
-        s_ = fo.add_mod(F, u, w)
-        d = fo._mont_mul_plain(F, fo.sub_mod(F, u, w), tw)
+        s_ = fo._add_mod_plain(F, u, w)
+        d = fo._mont_mul_plain(F, fo._sub_mod_plain(F, u, w), tw)
         x = torch.stack([s_, d], dim=2).reshape(B, m, L)
     return x.permute(2, 0, 1).contiguous()
 

@@ -77,8 +77,9 @@ def kzg_quotient_mont(f: LimbField, coeffs, z):
 
 
 def axpy_mont(f: LimbField, a, x, y):
-    """a*x + y for scalar a (16,), vectors x, y (n, 16)."""
-    return fo.add_mod(f, fo.mont_mul(f, a, x), y)
+    """a*x + y for scalar a (16,), vectors x, y (n, 16): one K1 launch on
+    the card."""
+    return fo.mont_mul_add(f, a, x, y)
 
 
 def powers_outer_mont(f: LimbField, base: int, count: int, *, device):

@@ -216,7 +216,7 @@ def prove(
         theta_b = _bcast(msc(theta), n)
         for e in exprs:
             v = eval_expr_dev(e, theta)
-            acc = v if acc is None else fo.add_mod(F, fo.mont_mul(F, acc, theta_b), v)
+            acc = v if acc is None else fo.mont_mul_add(F, acc, theta_b, v)
         return acc
 
     _zpad = lambda m_: np.zeros((m_, 8), np.uint32)  # noqa: E731
@@ -288,11 +288,11 @@ def prove(
             v = vals_dev[cref.kind][cref.index]
             dj = msc(beta * pow(DELTA, jj, FR_MOD) % FR_MOD)
             num = fo.mont_mul(
-                F, num, fo.add_mod(F, fo.add_mod(F, v, fo.mont_mul(F, dj, om_pows_dev)), gamma_b)
+                F, num, fo.add_mod(F, fo.mont_mul_add(F, dj, om_pows_dev, v), gamma_b)
             )
             den = fo.mont_mul(
                 F, den,
-                fo.add_mod(F, fo.add_mod(F, v, fo.mont_mul(F, beta_b, sigma_dev[jj])), gamma_b),
+                fo.add_mod(F, fo.mont_mul_add(F, beta_b, sigma_dev[jj], v), gamma_b),
             )
         z, last_z = grand_product(num, den, last_z)
         perm_z_devs.append(with_blinding(z, f"permz{len(perm_z_devs)}"))
@@ -522,7 +522,7 @@ def _permute_lookup_packed(a: np.ndarray, s: np.ndarray):
 def _quotient_walk(cs, chunks, theta, beta, gamma, u, env):
     """The constraint walk: emits every gate / permutation / lookup term
     through env.fold in the canonical order the verifier folds them."""
-    mm, ad, sb, neg = env.mm, env.ad, env.sb, env.neg
+    mm, ad, sb, neg, mad, msb = env.mm, env.ad, env.sb, env.neg, env.mad, env.msb
     const, q, roll, fold = env.const, env.q, env.roll, env.fold
 
     for _, expr in cs.gates:
@@ -538,7 +538,7 @@ def _quotient_walk(cs, chunks, theta, beta, gamma, u, env):
         z_vals = lambda a: env.zcol(("permz", a))  # noqa: E731
         fold(mm(env.l0, sb(env.one, z_vals(0))))
         zl = z_vals(env.n_perm_z - 1)
-        fold(mm(env.llast, sb(mm(zl, zl), zl)))
+        fold(mm(env.llast, msb(zl, zl, zl)))
         del zl
         for a in range(1, len(chunks)):
             fold(mm(env.l0, sb(z_vals(a), roll(z_vals(a - 1), u))))
@@ -552,9 +552,9 @@ def _quotient_walk(cs, chunks, theta, beta, gamma, u, env):
                 cref = cs.perm_columns[jj]
                 v = q(cref.kind, cref.index, 0)
                 sig = env.zcol(("sigma", jj))
-                left = mm(left, ad(ad(v, mm(beta_c, sig)), gamma_c))
-                idterm = mm(beta_c, mm(const(pow(DELTA, jj, FR_MOD)), env.x_vals))
-                right = mm(right, ad(ad(v, idterm), gamma_c))
+                left = mm(left, ad(mad(beta_c, sig, v), gamma_c))
+                idterm = mm(const(pow(DELTA, jj, FR_MOD)), env.x_vals)
+                right = mm(right, ad(mad(beta_c, idterm, v), gamma_c))
             fold(mm(env.lact, sb(left, right)))
 
     for li, lkexprs in enumerate(cs.lookups):
@@ -570,7 +570,7 @@ def _quotient_walk(cs, chunks, theta, beta, gamma, u, env):
                     challenge=lambda i: const(theta),
                     add=ad, mul=mm, neg=neg,
                 )
-                acc = v if acc is None else ad(mm(acc, const(theta)), v)
+                acc = v if acc is None else mad(acc, const(theta), v)
             return acc
 
         in_v = compress(lkexprs.inputs)
@@ -578,7 +578,7 @@ def _quotient_walk(cs, chunks, theta, beta, gamma, u, env):
         beta_c = const(beta)
         gamma_c = const(gamma)
         fold(mm(env.l0, sb(env.one, z_v)))
-        fold(mm(env.llast, sb(mm(z_v, z_v), z_v)))
+        fold(mm(env.llast, msb(z_v, z_v, z_v)))
         lhs = mm(roll(z_v, 1), mm(ad(a_v, beta_c), ad(s_v, gamma_c)))
         rhs = mm(z_v, mm(ad(in_v, beta_c), ad(tb_v, gamma_c)))
         fold(mm(env.lact, sb(lhs, rhs)))
@@ -692,10 +692,12 @@ def _quotient_full(
 
     def fold(t):
         nonlocal acc
-        acc = ad(mm(acc, y_c), t)
+        acc = fo.mont_mul_add(F, acc, y_c, t)
 
     env = _WalkEnv(
         mm=mm, ad=ad, sb=sb, neg=neg, const=const, q=q, fold=fold,
+        mad=lambda a, b, c: fo.mont_mul_add(F, a, b, c),
+        msb=lambda a, b, c: fo.mont_mul_add(F, a, b, c, sub=True),
         zcol=lambda tag: ext(zpolys[tag], tag),
         l0=ext(pk.l0, "l0"), llast=ext(pk.l_last, "l_last"),
         lact=ext(lact_poly, "l_active"),

@@ -89,6 +89,56 @@ def test_kernel_wrapper_rejects_cpu_tensors():
         tfo.mont_mul_k1(FR_LIMB, a, a)
 
 
+@pytest.mark.parametrize("mode", ["mul_add", "mul_sub", "add", "sub", "neg"])
+def test_k1_mode_wrappers_reject_cpu_tensors(mode):
+    """Every K1 mode's wrapper launches on CUDA tensors or raises."""
+    a = limbs_to_torch(_operands(FR_LIMB, 18)[0], "cpu")
+    calls = {
+        "mul_add": lambda: tfo.mont_mul_k1(FR_LIMB, a, a, c=a),
+        "mul_sub": lambda: tfo.mont_mul_k1(FR_LIMB, a, a, c=a, sub=True),
+        "add": lambda: tfo.add_sub_k1(FR_LIMB, tfo.ADD, a, a),
+        "sub": lambda: tfo.add_sub_k1(FR_LIMB, tfo.SUB, a, a),
+        "neg": lambda: tfo.add_sub_k1(FR_LIMB, tfo.NEG, a),
+    }
+    with pytest.raises(ValueError):
+        calls[mode]()
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("sub", [False, True], ids=["mul_add", "mul_sub"])
+def test_mont_mul_add_matches_jax(field, sub):
+    """K1's fused modes (plain versions here): a*b + c and a*b - c against
+    JAX's add_mod(mont_mul(a, b), c) and sub_mod(mont_mul(a, b), c), with c
+    a column and a broadcast scalar."""
+    jf, tf = FIELDS[field]
+    a, b = _operands(tf, 19)
+    c, _ = _operands(tf, 20)
+    ja, jb, jc = jnp.asarray(a), jnp.asarray(b), jnp.asarray(c)
+    jop = jfo.sub_mod if sub else jfo.add_mod
+    ta, tb, tc = (limbs_to_torch(x, "cpu") for x in (a, b, c))
+    for c_t, c_j in ((tc, jc), (tc[7], jc[7][None, :])):
+        want = np.asarray(jop(jf, jfo.mont_mul(jf, ja, jb), c_j))
+        got = limbs_from_torch(tfo.mont_mul_add(tf, ta, tb, c_t, sub=sub))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_k1_operand_strides():
+    """The (element stride, limb stride) K1 is given for each operand
+    layout the main path passes, and a copy only where no one stride fits."""
+    x = torch.zeros((6, 5, 16), dtype=torch.int32)
+    assert tfo._operand(x, -1)[1:] == (16, 1)  # row-major
+    plane = torch.zeros((16, 30), dtype=torch.int32)
+    assert tfo._operand(plane, 0)[1:] == (1, 30)  # limb-major
+    y = plane.reshape(16, 6, 5).permute(1, 2, 0)  # (6, 5, 16) view of a plane, as ntt_tile's output
+    t, es, ls = tfo._operand(y, -1)
+    assert t is y and (es, ls) == (1, 30)
+    s = torch.zeros(16, dtype=torch.int32).expand(6, 5, 16)  # broadcast scalar
+    assert tfo._operand(s, -1)[1:] == (0, 1)
+    odd = x[:, ::2]  # two element strides: copied
+    t, es, ls = tfo._operand(odd, -1)
+    assert t.is_contiguous() and (es, ls) == (16, 1)
+
+
 def test_poseidon_dev_matches_jax():
     """Batched Poseidon hash2 over 16 rows (zero, r - 1 and a domain tag)
     against the JAX package's PoseidonDev, and the host sponge."""

@@ -101,9 +101,10 @@ def test_fixed_base_matches_jax():
 
 def test_kernel_wrappers_reject_cpu_tensors(points):
     _, enc = points
-    px, py = tmt._msm_prep_points(limbs_to_torch(enc[:8], "cpu"))
-    d, s = tmt._msm_prep_digits(limbs_to_torch(ints_to_limbs(_scalars(8, 34)), "cpu"), 6)
+    pts = tmt._msm_pack_points(limbs_to_torch(enc[:8], "cpu"))
+    sc = limbs_to_torch(ints_to_limbs(_scalars(8, 34)), "cpu")
+    d, s = tmt._msm_prep_digits(sc, 6)
     with pytest.raises(ValueError):
-        tmt._accum_k3(px, py, d, s, 33)
+        tmt._accum_k3(pts, d, s, 33)
     with pytest.raises(ValueError):
-        tfb._accumulate_k5(tfb._table_for(g1_generator(), "cpu"), tfb._digits(px.T.contiguous()))
+        tfb._accumulate_k5(tfb._table_for(g1_generator(), "cpu"), tfb._digits(sc))

@@ -7,8 +7,9 @@
                                          # device busy share, per-launch time
                                          # beside the per-launch bound at the
                                          # main path's shapes) and cProfile
-                                         # (host); summaries printed, full
-                                         # tables in DIR
+                                         # (host), the same for two more
+                                         # chunk proves; summaries printed,
+                                         # full tables in DIR
 
 Phases, each fatal on failure (non-zero exit, no ok line):
   1. device and build: require CUDA, print the card's name and power limit,
@@ -31,7 +32,22 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      windows x 1024 point tiles) and the v1 batch's time breakdown, and K3
      against its plain version at the shape the v2 MSM gave it (4 columns x
      43 windows x 2^20 points);
-  5. a `kernels` JSON line, the nvidia-smi line, and as the last line
+  5. the chunk's inner proof at k = 20: a synthetic block trace (16
+     transactions x 40,000 struct logs) through BlockTrace.from_json and
+     chunk_trace_to_witness_block, ScrollSuperCircuit at the package's
+     default caps with min_k() == 20, keygen on phase 3's SRS, prove
+     (seed b"chip-smoke-chunk", SHPLONK; the quotient streams its 16
+     cosets: the lookups' degree 9 sets j = 4), verify (must be True), a
+     tampered proof rejected, the proof's sha256 equal to
+     CHUNK_PROOF_SHA256; seconds of each step, of the prove's
+     phases and of each coset, the coset cache's cap, the share of non-zero
+     cells per sub-circuit's columns and of non-zero MSM digits, the launch
+     counts of K1, K1as, K2, K3 and K4 over this phase alone (each must be
+     > 0), its peak device memory and peak host RSS; then, after the counts
+     are read, K3 against its plain version on the chunk's own densest
+     commit group (its points, digits and signs, captured during the
+     prove), K4 on that K3 output, and K2 at every shape the chunk gave it;
+  6. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 It imports torch and the port (scroll_prover_tpu_torch) only.
@@ -43,6 +59,9 @@ import contextlib
 import hashlib
 import importlib
 import json
+import logging
+import math
+import os
 import resource
 import subprocess
 import sys
@@ -80,6 +99,12 @@ ALT_PATH = ("K6", "K7", "K8")  # phase 4
 # card from the tree before the K1/K3 redesign: the redesigned kernels must
 # leave every byte of the proof as it was
 PROOF_SHA256 = "1b562859a5b3ce535a9aadd41bb10f518633e8946def3f6714031413850433d3"
+CHUNK_PATH = ("K1", "K1as", "K2", "K3", "K4")  # phase 5
+# sha256 of the k=20 chunk proof (the synthetic trace below, seed
+# b"chip-smoke-chunk", SHPLONK), taken on the card: it changes only when the
+# prover's output, the super circuit or the trace generator is meant to change
+CHUNK_PROOF_SHA256 = "328f09eb83a86f60082222ff74e1d8329def977a06fab211efbf1b23d1dfc570"
+CHUNK_TXS, CHUNK_LOGS = 16, 40_000
 
 
 def wrapper(key: str):
@@ -595,33 +620,43 @@ def k3_full_check(base, cols) -> int:
 
 
 @contextlib.contextmanager
-def bound_tally():
-    """Wrap every kernel wrapper so that each call records work() on its
-    arguments (no wait for the card: the digit counts stay on the device);
-    K1 and K1as are recorded, with their mode, at `field_ops._k1_launch`,
-    which all their calls pass through. Yields {key: [(mode or None, bytes,
-    multiplies) per call]}; convert it with tally_bounds() once the traced
-    work is over. A wrapper counts its launches on the function its
-    module's name points to, which while wrapped is the wrapping function;
-    on exit each count moves back to the wrapper itself, so
-    `wrapper(key).launches` counts every launch."""
-    from scroll_prover_tpu_torch.ops import field_ops as fo
-
-    calls = {key: [] for key in KERNELS}
+def hooked(keys, hook):
+    """Wrap the wrappers of `keys` (not K1/K1as) so that each call runs
+    hook(key, *args) before the kernel. A wrapper counts its launches on the
+    function its module's name points to, which while wrapped is the
+    wrapping function; on exit each count moves back to the wrapper itself,
+    so `wrapper(key).launches` counts every launch."""
     saved = []
-    for key, (mod_name, name, *_rest) in KERNELS.items():
-        if key in ("K1", "K1as"):
-            continue
+    for key in keys:
+        mod_name, name = KERNELS[key][:2]
         mod = importlib.import_module(f"scroll_prover_tpu_torch.ops.{mod_name}")
         orig = getattr(mod, name)
 
-        def tallied(*a, _orig=orig, _key=key):
-            calls[_key].append((None, *work(_key, *a)))
+        def wrapped(*a, _orig=orig, _key=key):
+            hook(_key, *a)
             return _orig(*a)
 
-        tallied.launches = 0
-        setattr(mod, name, tallied)
-        saved.append((mod, name, orig, tallied))
+        wrapped.launches = 0
+        setattr(mod, name, wrapped)
+        saved.append((mod, name, orig, wrapped))
+    try:
+        yield
+    finally:
+        for mod, name, orig, wrapped in saved:
+            setattr(mod, name, orig)
+            orig.launches += wrapped.launches
+
+
+@contextlib.contextmanager
+def bound_tally():
+    """Record work() on the arguments of every kernel call (no wait for the
+    card: the digit counts stay on the device); K1 and K1as are recorded,
+    with their mode, at `field_ops._k1_launch`, which all their calls pass
+    through. Yields {key: [(mode or None, bytes, multiplies) per call]};
+    convert it with tally_bounds() once the traced work is over."""
+    from scroll_prover_tpu_torch.ops import field_ops as fo
+
+    calls = {key: [] for key in KERNELS}
     k1_launch = fo._k1_launch
 
     def k1_tallied(f, mode, ops, limb_axis):
@@ -630,12 +665,11 @@ def bound_tally():
 
     fo._k1_launch = k1_tallied
     try:
-        yield calls
+        with hooked([k for k in KERNELS if k not in ("K1", "K1as")],
+                    lambda key, *a: calls[key].append((None, *work(key, *a)))):
+            yield calls
     finally:
         fo._k1_launch = k1_launch
-        for mod, name, orig, tallied in saved:
-            setattr(mod, name, orig)
-            orig.launches += tallied.launches
 
 
 def tally_bounds(calls):
@@ -652,18 +686,13 @@ def tally_bounds(calls):
             for g, ms in groups.items()}
 
 
-def profile_prove(run, proof, out_dir: str):
+def profile_prove(run, proof, out_dir: str, tag: str = "prove"):
     """Two more proves, each checked against the first: one under
     torch.profiler (device kernel time; busy share = summed device time over
     the prove's wall time; per kernel, device time per launch beside the
     bound per launch at the shapes this prove gave it), one under cProfile
     (host time by function). Returns the per-launch table, keyed by kernel
     and by "K1 <mode>" / "K1as <mode>"."""
-    import cProfile
-    import io
-    import os
-    import pstats
-
     os.makedirs(out_dir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for key in KERNELS:
@@ -689,9 +718,9 @@ def profile_prove(run, proof, out_dir: str):
         fail("torch.profiler recorded no device events")
     busy = sum(dev_us(e) for e in on_dev) / 1e6
     top = sorted(on_dev, key=dev_us, reverse=True)[:15]
-    with open(os.path.join(out_dir, "prove_device_profile.txt"), "w") as fh:
+    with open(os.path.join(out_dir, f"{tag}_device_profile.txt"), "w") as fh:
         fh.write(ka.table(sort_by="self_cuda_time_total", row_limit=60))
-    log(f"profile: prove wall {wall:.2f} s under torch.profiler and the bound tally, device busy "
+    log(f"profile: {tag} wall {wall:.2f} s under torch.profiler and the bound tally, device busy "
         f"{busy:.3f} s ({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for e in top:
         log(f"  device {dev_us(e) / 1e3:10.1f} ms  x{e.count:<6d} {e.key[:90]}")
@@ -719,28 +748,345 @@ def profile_prove(run, proof, out_dir: str):
             if launches:
                 per_launch[f"{key} {mode}"] = row(f"{key} {mode} {cname}", launches, (cname,),
                                                   totals[(key, mode)])
-    log(f"profile per-launch: {json.dumps(per_launch)}")
-    prove_stats = per_launch
+    log(f"profile {tag} per-launch: {json.dumps(per_launch)}")
+    if host_profile(run, os.path.join(out_dir, f"{tag}_host_profile.txt"), top=15) != proof:
+        fail("profiled prove gave other bytes")
+    return per_launch
+
+
+def synthetic_program(num_logs):
+    """(code_hex, structLogs): the opcode byte at each logged pc is the
+    logged op (the generator of the repo's witness tests)."""
+    ops = ["PUSH1", "SLOAD", "MSTORE", "SHA3", "CALLDATACOPY"] * (num_logs // 5 + 1)
+    code = bytearray()
+    logs = []
+    for op in ops[:num_logs]:
+        pc = len(code)
+        logs.append({"pc": pc, "op": op, "gas": 100000 - pc, "gasCost": 3, "depth": 1})
+        if op == "PUSH1":
+            code += bytes([0x60, 0x01])
+        else:
+            code.append({"SLOAD": 0x54, "MSTORE": 0x52, "SHA3": 0x20, "CALLDATACOPY": 0x37}[op])
+    return "0x" + code.hex(), logs
+
+
+def synthetic_trace(num_txs, num_logs) -> dict:
+    """The JSON block trace of the repo's witness tests (each transaction a
+    CALL into the sha256 precompile over the same program)."""
+    txs, ers = [], []
+    for i in range(num_txs):
+        txs.append({
+            "type": 0, "nonce": i, "txHash": "0x" + "ab" * 32,
+            "gas": 21000 + 500 * i, "gasPrice": "0x3b9aca00",
+            "from": "0x" + "11" * 20, "to": "0x" + "22" * 20,
+            "chainId": "0x82750", "value": "0x1", "data": "0xdeadbeef",
+            "isCreate": False, "v": "0x1", "r": "0x2", "s": "0x3",
+        })
+        code_hex, logs = synthetic_program(num_logs)
+        ers.append({
+            "gas": 21000, "failed": False, "returnValue": "",
+            "from": {"address": "0x" + "11" * 20, "nonce": i},
+            "byteCode": code_hex, "structLogs": logs,
+            "callTrace": {"type": "CALL", "from": "0x" + "11" * 20,
+                          "to": "0x0000000000000000000000000000000000000002", "input": "0x" + "00" * 64},
+        })
+    return {
+        "chainID": 534352, "version": "test",
+        "coinbase": {"address": "0x" + "33" * 20},
+        "header": {"number": "0x64", "gasUsed": "0xa410", "timestamp": "0x5"},
+        "transactions": txs,
+        "storageTrace": {
+            "rootBefore": "0x" + "01" * 32, "rootAfter": "0x" + "02" * 32,
+            "proofs": {"0x" + "11" * 20: ["0xaa", "0xbb"]},
+            "storageProofs": {"0x" + "22" * 20: {"0x0": ["0xcc"]}},
+        },
+        "executionResults": ers,
+        "withdraw_trie_root": "0x" + "03" * 32,
+        "startL1QueueIndex": 7,
+    }
+
+
+class _Marks(logging.Handler):
+    """Records (message, seconds) of the prover's progress lines, after a
+    synchronize, so that each mark's time includes the device work queued
+    before it."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.marks = []
+
+    def emit(self, record):
+        torch.cuda.synchronize()
+        self.marks.append((record.getMessage(), time.perf_counter()))
+
+
+@contextlib.contextmanager
+def prover_marks():
+    """Yields a _Marks attached to the prover's logger for the block; the
+    coset cache's cap is logged as the prove reports it."""
+    from scroll_prover_tpu_torch.proof_system.plonk import prover as pv
+
+    marks = _Marks()
+    plog = logging.getLogger(pv.__name__)
+    plog.addHandler(marks)
+    plog.setLevel(logging.INFO)
+    try:
+        yield marks
+    finally:
+        plog.removeHandler(marks)
+    for msg, _t in marks.marks:
+        if msg.startswith("quotient coset cache"):
+            log(f"chunk prove: {msg}")
+
+
+def rss_gib() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def host_profile(run, out_path: str, top: int = 20):
+    """run() under cProfile; the table by own time into out_path and its
+    top lines printed. Returns run's result."""
+    import cProfile
+    import io
+    import os
+    import pstats
 
     pr = cProfile.Profile()
     t0 = time.perf_counter()
     pr.enable()
-    again = run()
+    out = run()
     torch.cuda.synchronize()
     pr.disable()
     wall = time.perf_counter() - t0
-    if again != proof:
-        fail("profiled prove gave other bytes")
     buf = io.StringIO()
-    pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(40)
-    with open(os.path.join(out_dir, "prove_host_profile.txt"), "w") as fh:
+    pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(60)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as fh:
         fh.write(buf.getvalue())
-    log(f"profile: prove wall {wall:.2f} s under cProfile; top host functions by own time:")
+    log(f"profile: wall {wall:.2f} s under cProfile ({os.path.basename(out_path)}); top host functions by own time:")
     stats = pstats.Stats(pr).stats
-    rows = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)[:15]
-    for (fn, line, name), (_cc, nc, tt, ct, _callers) in rows:
+    for (fn, line, name), (_cc, nc, tt, ct, _callers) in sorted(stats.items(), key=lambda kv: kv[1][2],
+                                                               reverse=True)[:top]:
         log(f"  host {tt:8.3f} s own {ct:8.3f} s cum x{nc:<8d} {os.path.basename(fn)}:{line} {name}")
-    return prove_stats
+    return out
+
+
+def family_cs():
+    """A ConstraintSystem that records, for each advice and fixed column, the
+    sub-circuit whose configure made it (the outermost configure below the
+    super circuit's)."""
+    from scroll_prover_tpu_torch.proof_system.plonk.cs import ConstraintSystem
+    from scroll_prover_tpu_torch.zkevm import ScrollSuperCircuit
+
+    class FamilyCS(ConstraintSystem):
+        def __init__(self):
+            super().__init__()
+            self.family = {"advice": [], "fixed": []}
+
+        def _note(self, kind):
+            f, sub = sys._getframe(2), None
+            while f is not None:
+                me = f.f_locals.get("self") if f.f_code.co_name == "configure" else None
+                if isinstance(me, ScrollSuperCircuit):
+                    break
+                if me is not None:
+                    sub = me
+                f = f.f_back
+            self.family[kind].append(type(sub).__name__ if sub is not None else "ScrollSuperCircuit")
+
+        def advice_column(self):
+            self._note("advice")
+            return super().advice_column()
+
+        def fixed_column(self):
+            self._note("fixed")
+            return super().fixed_column()
+
+    return FamilyCS()
+
+
+def nonzero_by_family(cs, tables) -> dict:
+    """{family: {kind: [columns, non-zero cells]}} of an assignment made on a
+    family_cs()."""
+    import numpy as np
+
+    out = {}
+    for kind in ("advice", "fixed"):
+        for fam, nz in zip(cs.family[kind], np.count_nonzero(tables[kind], axis=1)):
+            cell = out.setdefault(fam, {}).setdefault(kind, [0, 0])
+            cell[0] += 1
+            cell[1] += int(nz)
+    return out
+
+
+def chunk_proof(srs):
+    """Phase 5: the chunk's inner proof at k = 20 (see the module
+    docstring). Returns the phase seconds, a closure that proves again and
+    the proof."""
+    from scroll_prover_tpu_torch.l2types import BlockTrace
+    from scroll_prover_tpu_torch.proof_system.plonk import prover as pv
+    from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen
+    from scroll_prover_tpu_torch.proof_system.plonk.mock import _pad_instance
+    from scroll_prover_tpu_torch.proof_system.plonk.verifier import verify
+    from scroll_prover_tpu_torch.witness import chunk_trace_to_witness_block
+    from scroll_prover_tpu_torch.zkevm import INNER_DEGREE, ScrollSuperCircuit, chunk_instance
+
+    secs = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"chunk {name}: {secs[name]:.2f} s (peak host RSS so far {rss_gib():.2f} GiB)")
+        return out
+
+    trace = step("trace_json", lambda: synthetic_trace(CHUNK_TXS, CHUNK_LOGS))
+    wb = step("witness", lambda: chunk_trace_to_witness_block([BlockTrace.from_json(trace)]))
+    del trace
+    circ = ScrollSuperCircuit.new_from_block(wb)
+    k = step("min_k", circ.min_k)
+    log(f"chunk: {wb.num_txs} txs, {wb.num_steps} steps, {len(wb.rw_rows)} rw rows, min_k {k}")
+    if k != INNER_DEGREE:
+        fail(f"the synthetic chunk's min_k is {k}, not {INNER_DEGREE}")
+    instance = [chunk_instance(wb)]
+
+    def assign_once():
+        cs = family_cs()
+        circ.configure(cs)
+        n = 1 << k
+        return cs, circ.assign(cs, n, _pad_instance(cs, n, instance))
+
+    cs, tables = step("assign", assign_once)
+    log(f"chunk circuit: {cs.num_advice} advice, {cs.num_fixed} fixed, {cs.num_instance} instance columns, "
+        f"{len(cs.perm_columns)} permutation columns, {len(cs.lookups)} lookups, {len(cs.gates)} gates; "
+        f"row usage {json.dumps(circ.row_usages_)}")
+
+    fams = step("nonzero_count", lambda: nonzero_by_family(cs, tables))
+    del tables
+    n = 1 << k
+    for kind in ("advice", "fixed"):
+        cols = sum(v[kind][0] for v in fams.values() if kind in v)
+        nz = sum(v[kind][1] for v in fams.values() if kind in v)
+        log(f"chunk {kind}: {cols} columns, {100 * nz / (cols * n):.3f}% of cells non-zero; by family "
+            + ", ".join(f"{fam} {v[kind][0]} cols {100 * v[kind][1] / (v[kind][0] * n):.3f}%"
+                        for fam, v in fams.items() if kind in v))
+    pk, vk = step("keygen", lambda: keygen(srs, k, circ, instance))
+
+    def prove_chunk():
+        return pv.prove(srs, pk, circ, instance, seed=b"chip-smoke-chunk", multiopen="shplonk")
+
+    def prove_again():
+        with prover_marks():
+            return prove_chunk()
+
+    with prover_marks() as marks:
+        t_start = time.perf_counter()
+        proof = step("prove", prove_chunk)
+    prev = t_start
+    for msg, t in marks.marks:  # "prove[<phase>] <s>" or "quotient coset <r>/<ratio> done"
+        if msg.startswith("prove["):
+            label = msg[len("prove["):msg.index("]")]
+        elif msg.endswith(" done"):
+            label = msg.removesuffix(" done")
+        else:
+            continue
+        log(f"chunk prove: {label}: {t - prev:.2f} s")
+        prev = t
+    cosets = [m for m, _ in marks.marks if m.startswith("quotient coset") and m.endswith(" done")]
+    ratio = vk.domain.extended_n // vk.domain.n
+    if len(cosets) != ratio:
+        fail(f"the chunk prove walked {len(cosets)} cosets, not {ratio} (streamed quotient)")
+    ok = step("verify", lambda: verify(srs, vk, instance, proof, multiopen="shplonk"))
+    if not ok:
+        fail("the k=20 chunk proof did not verify")
+    bad = bytearray(proof)
+    bad[100] ^= 1
+    if verify(srs, vk, instance, bytes(bad), multiopen="shplonk"):
+        fail("a tampered k=20 chunk proof verified")
+    digest = hashlib.sha256(proof).hexdigest()
+    log(f"chunk proof: {len(proof)} bytes, verify True, tampered proof rejected; sha256 {digest} "
+        f"(pinned {CHUNK_PROOF_SHA256})")
+    if digest != CHUNK_PROOF_SHA256:
+        fail("the k=20 chunk proof's bytes differ from the pinned proof")
+    return secs, prove_again, proof
+
+
+@contextlib.contextmanager
+def path_inputs():
+    """While phase 5 runs: the non-zero digits of every K3 call (device
+    counts, summed after the phase), host copies of the arguments of the K3
+    call with the most non-zero digits among the widest (one of the chunk's
+    commit groups: this waits for the card at each K3 call), and the shape,
+    k and twiddles of each distinct K2 call. Yields the dict it fills."""
+    seen = {"k3_live": [], "k3_digits": 0, "k3": None, "k3_rank": (-1, -1), "k2": {}}
+
+    def hook(key, *a):
+        if key == "K3":
+            pts, digs, signs, B = a
+            live = (digs != 0).sum()
+            seen["k3_live"].append(live)
+            seen["k3_digits"] += digs.numel()
+            rank = (digs.shape[0], int(live))
+            if rank > seen["k3_rank"]:
+                seen["k3_rank"] = rank
+                seen["k3"] = (pts.cpu(), digs.cpu(), signs.cpu(), B)
+        else:  # K2: the butterflies do not depend on the data, the shapes do
+            v, tw, k = a
+            seen["k2"].setdefault((tuple(v.shape), k), (0, tw.cpu()))
+            n_calls, tw_host = seen["k2"][(tuple(v.shape), k)]
+            seen["k2"][(tuple(v.shape), k)] = (n_calls + 1, tw_host)
+
+    with hooked(("K2", "K3"), hook):
+        yield seen
+
+
+def chunk_kernel_checks(seen, dev, gen) -> dict:
+    """Run after phase 5's launch counts are read. Holds K3 against its plain
+    version on the captured chunk commit group (the chunk's own points,
+    digits and signs), K4 against its plain version on K3's output there,
+    and K2 against its plain version at every (shape, k) the chunk gave it
+    (the chunk's twiddles, random limb-major values); CUDA-event ms beside
+    the bound at each. Returns {key: max_abs_err}."""
+    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    from scroll_prover_tpu_torch.ops import msm_tile as mt
+    from scroll_prover_tpu_torch.ops import ntt_tile as nt
+
+    live = int(torch.stack(seen["k3_live"]).sum())
+    log(f"chunk K3 digits: {live} of {seen['k3_digits']} non-zero "
+        f"({100 * live / seen['k3_digits']:.3f}%) over {len(seen['k3_live'])} calls")
+    pts, digs, signs, B = (t.to(dev) if torch.is_tensor(t) else t for t in seen["k3"])
+    k3_ms, raw = event_ms(lambda: mt._accum_k3(pts, digs, signs, B), 2)
+    b3 = bound(*work("K3", pts, digs, signs, B))
+    p_ms, plain = wall_ms(lambda: mt._accum_v2_plain(pts, digs, signs, B))
+    errs = {"K3": max_abs_err(raw, plain)}
+    log(f"K3 at the chunk's shape {tuple(digs.shape)} ({seen['k3_rank'][1]} non-zero digits): {k3_ms:.3f} ms "
+        f"by CUDA events, bound {b3[0]:.3f} ms ({b3[1]}); vs plain version ({p_ms / 1e3:.1f} s wall): "
+        f"max_abs_err {errs['K3']}")
+    del pts, digs, signs, plain
+    k4_ms, red = event_ms(lambda: mt._lane_reduce_k4(raw), 2)
+    b4 = bound(*work("K4", raw))
+    errs["K4"] = max_abs_err(red, mt._lane_reduce_plain(raw))
+    log(f"K4 on that K3 output {tuple(raw.shape)}: {k4_ms:.4f} ms by CUDA events ({int(math.log2(raw.shape[1]))} "
+        f"launches), bound {b4[0]:.4f} ms ({b4[1]}); vs plain version: max_abs_err {errs['K4']}")
+    del raw, red
+    errs["K2"] = 0
+    for (shape, k), (n_calls, tw) in sorted(seen["k2"].items()):
+        L, rows, m = shape
+        v = rand_field(FR_LIMB, rows * m, gen, dev).T.contiguous().reshape(L, rows, m)
+        tw = tw.to(dev)
+        k2_ms, out = event_ms(lambda: nt._bntt_k2(v, tw, k), 3)
+        err = max_abs_err(out, nt._bntt_plain(v, tw, k))
+        errs["K2"] = max(errs["K2"], err)
+        b2 = bound(*work("K2", v, tw, k))
+        log(f"K2 at the chunk's shape {shape}, k = {k} ({n_calls} calls): {k2_ms:.4f} ms by CUDA events, "
+            f"bound {b2[0]:.4f} ms ({b2[1]}); vs plain version: max_abs_err {err}")
+        del v, out
+    for key, err in errs.items():
+        if err != 0:
+            fail(f"{key} disagrees with its plain version at the chunk's shapes")
+    return errs
 
 
 def counted(keys, fn):
@@ -816,6 +1162,40 @@ def main() -> None:
                 key, _, mode = label.partition(" ")
                 target = rows[key]["modes"][mode] if mode else rows[key]
                 target.update({"prove_launches": st["launches"], "prove_device_ms": st["device_ms"]})
+        del prove_again, cols
+
+        # the phase runs at the package's defaults: no cap or degree knob
+        for knob in [v for v in os.environ if v.startswith("SPT_")]:
+            log(f"chunk: ignoring {knob}={os.environ.pop(knob)}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rss0 = rss_gib()
+        t0 = time.perf_counter()
+        def chunk_run():
+            with path_inputs() as seen:
+                return chunk_proof(srs), seen
+
+        ((secs, chunk_again, chunk), seen), chunk_launches, chunk_modes = counted(CHUNK_PATH, chunk_run)
+        for key, v in chunk_launches.items():
+            rows[key]["chunk_launches"] = v
+        for key, modes in chunk_modes.items():
+            for mode, v in modes.items():
+                rows[key]["modes"][mode]["chunk_launches"] = v
+        peak_dev = torch.cuda.max_memory_allocated()
+        log(f"chunk seconds: {json.dumps(secs)}; phase {time.perf_counter() - t0:.1f} s")
+        log(f"chunk peak device memory {peak_dev / 2**30:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; "
+            f"peak host RSS {rss_gib():.2f} GiB (before the phase {rss0:.2f})")
+        log(f"chunk launches: {json.dumps(chunk_launches)}; K1 by mode: {json.dumps(chunk_modes)}")
+        for key, err in chunk_kernel_checks(seen, dev, gen).items():
+            rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+        del seen
+        if args.profile:  # two more chunk proves, profiled, after the counts are read
+            for label, st in profile_prove(chunk_again, chunk, args.profile, tag="chunk_prove").items():
+                key, _, mode = label.partition(" ")
+                target = rows[key]["modes"][mode] if mode else rows[key]
+                target.update({"chunk_device_ms": st["device_ms"],
+                               "chunk_bound_ms_per_launch": st["bound_ms_per_launch"]})
+        del chunk_again
 
     kernels = []
     for key, (_mod, _fn, _cnames, src, rep) in KERNELS.items():

@@ -66,21 +66,6 @@ def limbs_to_ints(arr) -> list[int]:
 N_WORDS = N_LIMBS // 2
 
 
-def pack_host(arr16: np.ndarray) -> np.ndarray:
-    """(n, N_LIMBS) u32 limbs -> (n, N_WORDS) u32 packed words (host)."""
-    a = np.asarray(arr16, dtype=np.uint32)
-    return a[..., 0::2] | (a[..., 1::2] << np.uint32(16))
-
-
-def unpack_host(packed: np.ndarray) -> np.ndarray:
-    """(n, N_WORDS) u32 packed -> (n, N_LIMBS) u32 limbs (host)."""
-    p = np.asarray(packed, dtype=np.uint32)
-    out = np.empty(p.shape[:-1] + (N_LIMBS,), np.uint32)
-    out[..., 0::2] = p & np.uint32(0xFFFF)
-    out[..., 1::2] = p >> np.uint32(16)
-    return out
-
-
 def ints_to_packed(xs: Sequence[int]) -> np.ndarray:
     """Vector of ints -> (n, N_WORDS) packed words."""
     buf = b"".join(int(x).to_bytes(32, "little") for x in xs)
@@ -97,25 +82,39 @@ def packed_to_ints(packed: np.ndarray) -> list[int]:
     ]
 
 
-def objcol_to_packed(col) -> np.ndarray:
-    """Assignment column (object array / list of ints) -> packed words.
-
-    Fast path: columns whose values all fit int64 (selectors, bytes, small
-    counters — the majority of zkevm assignment columns) convert through
-    one vectorized astype instead of a per-element to_bytes loop."""
-    arr = np.asarray(col, dtype=object)
-    try:
-        small = arr.astype(np.int64)
-    except (OverflowError, TypeError):
-        # canonical reduction mirrors the prover's int(v) % FR_MOD encode
-        return ints_to_packed([int(v) % FR_MOD for v in col])
-    if (small < 0).any():
-        return ints_to_packed([int(v) % FR_MOD for v in col])
-    out = np.zeros((len(col), N_WORDS), np.uint32)
+def _small_to_packed(small: np.ndarray) -> np.ndarray:
+    """Non-negative int64 values -> packed words."""
+    out = np.zeros((len(small), N_WORDS), np.uint32)
     u = small.astype(np.uint64)
     out[:, 0] = (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     out[:, 1] = (u >> np.uint64(32)).astype(np.uint32)
     return out
+
+
+def objcol_to_packed(col) -> np.ndarray:
+    """Assignment column (object array / list of ints) -> packed words of
+    the canonical values (v mod FR_MOD).
+
+    Fast path: columns whose values all fit int64 (selectors, bytes, small
+    counters — the majority of zkevm assignment columns) convert through
+    one vectorized astype. Otherwise the values in [0, 2^62) (told apart
+    through a float64 view of the column) still go that way, and only the
+    rest take the per-element to_bytes loop."""
+    arr = np.asarray(col, dtype=object)
+    try:
+        small = arr.astype(np.int64)
+    except (OverflowError, TypeError):
+        small = None
+    if small is not None and not (small < 0).any():
+        return _small_to_packed(small)
+    approx = arr.astype(np.float64)
+    fits = (approx >= 0) & (approx < 2.0**62)
+    out = _small_to_packed(arr[fits].astype(np.int64))
+    full = np.empty((len(arr), N_WORDS), np.uint32)
+    full[fits] = out
+    rest = np.nonzero(~fits)[0]
+    full[rest] = ints_to_packed([int(v) % FR_MOD for v in arr[rest]])
+    return full
 
 
 @dataclass(frozen=True, eq=False)  # identity hash: usable as a jit static arg
@@ -190,6 +189,14 @@ def limbs_to_torch(arr, device) -> torch.Tensor:
     """uint32 limb array (any shape) -> int32 tensor on `device`."""
     a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32)).astype(np.int32)
     return torch.from_numpy(a).to(device)
+
+
+def packed_to_torch(packed: np.ndarray, device) -> torch.Tensor:
+    """(n, 8) packed uint32 words (host) -> (n, 16) int32 limbs on `device`:
+    the words cross as they are (half the bytes of the limbs) and split on
+    the device."""
+    w = np.ascontiguousarray(packed, dtype=np.uint32).view(np.int32)
+    return words_to_limbs(torch.from_numpy(w).to(device))
 
 
 def limbs_from_torch(t: torch.Tensor) -> np.ndarray:

@@ -80,6 +80,13 @@ class EvaluationDomain:
         x = fo.mont_mul_big(self.field, x, self._table("coset_pow", x.device))
         return self._table("tiled_ext", x.device).ntt(x)
 
+    def prepare_intt_extended(self, device) -> None:
+        """Build intt_extended's device tables now (they stay with the
+        domain), so that memory sized before the first call also holds
+        them."""
+        self._table("tiled_ext", device)
+        self._table("coset_pow_inv", device)
+
     def intt_extended(self, y):
         """Evals over zeta*H_ext -> coefficients."""
         assert y.shape == (self.extended_n, N_LIMBS)

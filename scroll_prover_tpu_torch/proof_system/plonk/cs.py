@@ -110,7 +110,17 @@ class ConstraintSystem:
 
     # -- shape ------------------------------------------------------------
     def max_gate_degree(self) -> int:
+        """Degree budget of the quotient's terms (it sets the extended
+        domain, the quotient's piece count and the permutation chunk): the
+        gates' degree, at least 3, and each lookup's term
+        l_active * z * (input + beta) * (table + gamma), of degree
+        2 + deg(input) + deg(table). The JAX package counts the gates only,
+        so a circuit whose lookups exceed its gates' budget (the super
+        circuit's evm/push_immediate: 2 + 4 + 3 = 9 against 5) gets a
+        quotient too short to verify there; here its budget covers them."""
         d = max((e.degree() for _, e in self.gates), default=1)
+        for lk in self.lookups:
+            d = max(d, 2 + max(e.degree() for e in lk.inputs) + max(e.degree() for e in lk.tables))
         # permutation/lookup arguments contribute degree perm_chunk + 2
         return max(d, 3)
 

@@ -22,12 +22,12 @@ import numpy as np
 import torch
 
 from ...fields.bn254 import FR_GENERATOR, FR_MOD, FR_TWO_ADICITY
-from ...fields.limbs import FR_LIMB, ints_to_limbs, limbs_to_torch, objcol_to_packed, unpack_host
+from ...fields.limbs import FR_LIMB, ints_to_limbs, limbs_to_torch, objcol_to_packed, packed_to_torch
 from ...hashes.keccak import keccak256
 from ...ops import field_ops as fo
 from ...ops import poly as poly_ops
 from ...ops.ntt import EvaluationDomain
-from ..kzg import SRS, kzg_commit
+from ..kzg import SRS, kzg_commit_batch
 from .cs import Circuit, ConstraintSystem
 
 # coset shift: DELTA generates distinct cosets of the 2^k subgroup H
@@ -38,11 +38,11 @@ _JAX_PKG = "scroll_prover_tpu"
 
 
 def encode_column(col, device) -> torch.Tensor:
-    """Assignment column (ints, object array) -> (n, 16) Montgomery limbs on
-    `device`: host standard-form limbs (vectorized when every value fits
-    int64), then one to_mont product on the device."""
-    std = unpack_host(objcol_to_packed(col))
-    return fo.to_mont(FR_LIMB, limbs_to_torch(std, device))
+    """Assignment column (ints, object array, or packed (n, 8) words) ->
+    (n, 16) Montgomery limbs on `device`: host packed standard-form words,
+    split into limbs on the device, then one to_mont product there."""
+    packed = col if isinstance(col, np.ndarray) and col.dtype == np.uint32 else objcol_to_packed(col)
+    return fo.to_mont(FR_LIMB, packed_to_torch(packed, device))
 
 
 def _pickle_shape(shape: dict) -> bytes:
@@ -149,7 +149,7 @@ class VerifyingKey:
 class ProvingKey:
     vk: VerifyingKey
     fixed_polys: list          # device (n, 16) Montgomery coeff forms
-    fixed_values: list         # host object arrays (lookup tables need values)
+    fixed_values: list         # host (n, 8) packed standard-form words
     sigma_polys: list
     sigma_values: "_SigmaValues"
     l0: torch.Tensor = None
@@ -198,20 +198,15 @@ def keygen(srs: SRS, k: int, circuit: Circuit, instance=None):
     inst = np.empty((cs.num_instance, n), dtype=object)
     inst[:] = 0
     tables = circuit.assign(cs, n, inst)
-    fixed_vals = [tables["fixed"][i] for i in range(cs.num_fixed)]
+    # fixed values at rest on the host as packed standard-form words
+    fixed_vals = [objcol_to_packed(tables["fixed"][i]) for i in range(cs.num_fixed)]
+    tables = None
 
     sigma_vals = _SigmaValues(_build_next(cs, n), len(cs.perm_columns), n, dom.omega, device)
-    fixed_polys, fixed_coms = [], []
-    for col in fixed_vals:
-        coeffs = dom.intt(encode_column(col, device))
-        fixed_polys.append(coeffs)
-        fixed_coms.append(kzg_commit(srs, coeffs))
-
-    sigma_polys, sigma_coms = [], []
-    for j in range(len(sigma_vals)):
-        coeffs = dom.intt(sigma_vals.col_mont(j))
-        sigma_polys.append(coeffs)
-        sigma_coms.append(kzg_commit(srs, coeffs))
+    fixed_polys = [dom.intt(encode_column(col, device)) for col in fixed_vals]
+    sigma_polys = [dom.intt(sigma_vals.col_mont(j)) for j in range(len(sigma_vals))]
+    fixed_coms = kzg_commit_batch(srs, fixed_polys)
+    sigma_coms = kzg_commit_batch(srs, sigma_polys)
 
     usable = cs.usable_rows(n)
     l0_vals = np.zeros(n, dtype=np.int64)
@@ -244,5 +239,5 @@ def _build_next(cs: ConstraintSystem, n: int) -> np.ndarray:
 
 
 def _extended_j(cs: ConstraintSystem) -> int:
-    d = max(cs.max_gate_degree(), 5)  # lookup/perm args reach degree ~5
+    d = max(cs.max_gate_degree(), 5)  # the permutation argument reaches degree 5
     return max((d - 1).bit_length(), 1)

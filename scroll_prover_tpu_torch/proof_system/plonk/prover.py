@@ -9,32 +9,36 @@ Protocol (halo2-shaped; verifier.py mirrors it exactly):
   5. x; write evals of all queried polys at their rotations
   6. v; GWC (or SHPLONK) multiopen
 
-This is the JAX package's fully resident path, on the device of the SRS:
-every column stays on the card from assignment to opening, and the quotient
-runs on the full extended domain (`_quotient_full`). Proof bytes are
-identical to the JAX package's for the same seed.
+It runs on the device of the SRS. Value columns are committed over the
+Lagrange basis and turned into coefficient forms one by one
+(`_intt_consume`); the quotient walks the extended domain one coset of n
+rows at a time (`_quotient_cosets`), so no column is ever held at the
+extended size. Proof bytes are identical to the JAX package's for the same
+seed.
 """
 from __future__ import annotations
 
 import hashlib
 import logging
+import os
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ...device import resolve_device
 from ...fields.bn254 import FR_MOD
 from ...fields.limbs import (
-    FR_LIMB, N_LIMBS, ints_to_limbs, ints_to_packed, limbs_to_torch, packed_to_ints, pack_host,
-    limbs_from_torch, objcol_to_packed, unpack_host,
+    FR_LIMB, N_LIMBS, ints_to_limbs, ints_to_packed, limbs_from_torch, limbs_to_torch, limbs_to_words,
+    objcol_to_packed, packed_to_ints,
 )
 from ...ops import field_ops as fo
 from ...ops import poly as poly_ops
 from ..kzg import SRS, kzg_commit, kzg_commit_batch
 from ..transcript import PoseidonTranscript
 from .cs import ConstraintSystem
-from .keygen import DELTA, ProvingKey
+from .keygen import DELTA, ProvingKey, encode_column
 from .mock import _pad_instance
 
 F = FR_LIMB
@@ -42,16 +46,6 @@ log = logging.getLogger(__name__)
 
 # field elements per batched NTT group (2^22 = 256 MiB of int32 limbs)
 NTT_BATCH_BUDGET = 1 << 22
-
-
-def _encode_mont(vals, device) -> torch.Tensor:
-    """Host ints, an object column or packed (n, 8) uint32 words -> (n, 16)
-    Montgomery limbs on `device` (one to_mont product there)."""
-    if isinstance(vals, np.ndarray) and vals.dtype == np.uint32 and vals.ndim == 2:
-        std = unpack_host(vals) if vals.shape[1] == N_LIMBS // 2 else vals
-    else:
-        std = unpack_host(objcol_to_packed(vals))
-    return fo.to_mont(F, limbs_to_torch(std, device))
 
 
 def _mont_scalar(v: int, device) -> torch.Tensor:
@@ -148,10 +142,8 @@ def prove(
     """Prove `circuit` on the SRS's device. A fixed `seed` (deterministic
     blinding) is for tests only; by default every proof draws fresh entropy."""
     if seed is None:
-        import os
-
         seed = os.urandom(32)
-    device = srs.device
+    device = resolve_device(srs.device)
     vk = pk.vk
     cs: ConstraintSystem = vk.cs
     dom = vk.domain
@@ -159,8 +151,9 @@ def prove(
     usable = cs.usable_rows(n)
     u = usable - 1
     omega = dom.omega
-    enc = lambda vals: _encode_mont(vals, device)  # noqa: E731
+    enc = lambda vals: encode_column(vals, device)  # noqa: E731
     msc = lambda v: _mont_scalar(v, device)  # noqa: E731
+    commit_vals = lambda cols: _commit_values(srs, dom, cols)  # noqa: E731
 
     _t0 = time.perf_counter()
 
@@ -169,18 +162,25 @@ def prove(
 
     inst = _pad_instance(cs, n, instance)
     tables = circuit.assign(cs, n, inst)
-    advice_vals = []
+    # host packed standard-form advice values, blinding rows in place
+    advice_host = []
     for i in range(cs.num_advice):
-        col = [int(v) % FR_MOD for v in tables["advice"][i]]
-        col[usable:] = _blind(seed, f"adv{i}", n - usable)
-        advice_vals.append(col)
+        col = objcol_to_packed(tables["advice"][i])
+        col[usable:] = _blind_packed(seed, f"adv{i}", n - usable)
+        advice_host.append(col)
+    tables = None
+    _mark("assigned")
 
     tr = transcript_cls()
     absorb_instances(tr, vk, instance)
 
     # --- device value tables (base domain, Montgomery form) ---------------
-    advice_dev = [enc(col) for col in advice_vals]
-    fixed_dev = _fixed_dev(pk, device)
+    # Phases 1-3 work on values and commit them (over the Lagrange basis
+    # when the SRS is the domain's size: the same points); coefficient forms
+    # are made after phase 3, each value column freed as its coefficients
+    # appear (_intt_consume), so values and coefficients never coexist.
+    advice_dev = [enc(col) for col in advice_host]
+    fixed_dev = [enc(col) for col in pk.fixed_values]
     inst_dev = [enc([int(v) for v in inst[i]]) for i in range(cs.num_instance)]
     vals_dev = {"advice": advice_dev, "fixed": fixed_dev, "instance": inst_dev}
     ones_n = fo.one_mont(F, (n,), device=device)
@@ -203,8 +203,7 @@ def prove(
         )
 
     # --- phase 1: advice commitments -------------------------------------
-    advice_polys = _intt_cols(dom, advice_dev)
-    for c in kzg_commit_batch(srs, advice_polys):
+    for c in commit_vals(advice_dev):
         tr.write_point(c)
 
     _mark("advice committed")
@@ -219,33 +218,26 @@ def prove(
             acc = v if acc is None else fo.mont_mul_add(F, acc, theta_b, v)
         return acc
 
-    _zpad = lambda m_: np.zeros((m_, 8), np.uint32)  # noqa: E731
-
+    # compressed input/table columns and their permutations (made on the
+    # device) stay on the host, packed; phases 3 and 4 bring them back as
+    # they need them
     lookups = []
     for li, lk in enumerate(cs.lookups):
-        a_dev = compress_dev(lk.inputs)
-        s_dev = compress_dev(lk.tables)
-        a_vals = np.concatenate([_decode_mont_packed(a_dev, usable), _zpad(n - usable)])
-        s_vals = np.concatenate([_decode_mont_packed(s_dev, usable), _zpad(n - usable)])
+        a_w = _std_words(compress_dev(lk.inputs), usable, n)
+        s_w = _std_words(compress_dev(lk.tables), usable, n)
         # grand product (hence multiset equality) covers rows 0..u-1
-        a_perm, s_perm = _permute_lookup_packed(a_vals[:u], s_vals[:u])
+        a_perm, s_perm = _permute_lookup(a_w[:u], s_w[:u])
         lookups.append({
-            "a_dev": a_dev,
-            "s_dev": s_dev,
-            "a_perm": np.concatenate([a_perm, _blind_packed(seed, f"lkA{li}", n - u)]),
-            "s_perm": np.concatenate([s_perm, _blind_packed(seed, f"lkS{li}", n - u)]),
+            "a": _words_host(a_w),
+            "s": _words_host(s_w),
+            "a_perm": np.concatenate([_words_host(a_perm), _blind_packed(seed, f"lkA{li}", n - u)]),
+            "s_perm": np.concatenate([_words_host(s_perm), _blind_packed(seed, f"lkS{li}", n - u)]),
         })
-    for lk in lookups:
-        lk["a_perm_dev"] = enc(lk["a_perm"])
-        lk["s_perm_dev"] = enc(lk["s_perm"])
-    lk_polys = _intt_cols(
-        dom, [d for lk in lookups for d in (lk["a_perm_dev"], lk["s_perm_dev"])]
-    )
-    for i, lk in enumerate(lookups):
-        lk["a_poly"] = lk_polys[2 * i]
-        lk["s_poly"] = lk_polys[2 * i + 1]
-    for c in kzg_commit_batch(srs, lk_polys):
-        tr.write_point(c)
+    perm_host = [lk[key] for lk in lookups for key in ("a_perm", "s_perm")]
+    g = _ntt_group(n)
+    for i in range(0, len(perm_host), g):
+        for c in commit_vals([enc(col) for col in perm_host[i : i + g]]):
+            tr.write_point(c)
 
     _mark("lookups committed")
     beta = tr.squeeze_challenge()
@@ -276,7 +268,6 @@ def prove(
     chunk_len = _perm_chunks(cs)
     m = len(cs.perm_columns)
     chunks = [list(range(a, min(a + chunk_len, m))) for a in range(0, m, chunk_len)]
-    sigma_dev = _sigma_dev(pk)
 
     perm_z_devs = []
     last_z = fo.one_mont(F, device=device)
@@ -292,40 +283,49 @@ def prove(
             )
             den = fo.mont_mul(
                 F, den,
-                fo.add_mod(F, fo.mont_mul_add(F, beta_b, sigma_dev[jj], v), gamma_b),
+                fo.add_mod(F, fo.mont_mul_add(F, beta_b, pk.sigma_col_mont(jj), v), gamma_b),
             )
         z, last_z = grand_product(num, den, last_z)
         perm_z_devs.append(with_blinding(z, f"permz{len(perm_z_devs)}"))
 
+    # the fixed value tables served their last use
+    vals_dev["fixed"] = fixed_dev = None
     lookup_z_devs = []
     one_sc = fo.one_mont(F, device=device)
     for li, lk in enumerate(lookups):
-        num = fo.mont_mul(F, fo.add_mod(F, lk["a_dev"], beta_b), fo.add_mod(F, lk["s_dev"], gamma_b))
+        num = fo.mont_mul(F, fo.add_mod(F, enc(lk.pop("a")), beta_b), fo.add_mod(F, enc(lk.pop("s")), gamma_b))
         den = fo.mont_mul(
-            F, fo.add_mod(F, lk["a_perm_dev"], beta_b), fo.add_mod(F, lk["s_perm_dev"], gamma_b)
+            F, fo.add_mod(F, enc(lk["a_perm"]), beta_b), fo.add_mod(F, enc(lk["s_perm"]), gamma_b)
         )
         z, _ = grand_product(num, den, one_sc)
         lookup_z_devs.append(with_blinding(z, f"lkz{li}"))
 
     # one commit chain for perm Zs + lookup Zs + the random poly: no
     # challenge is squeezed between these transcript writes
-    perm_z_polys = _intt_cols(dom, perm_z_devs)
-    lookup_z_polys = _intt_cols(dom, lookup_z_devs)
-    random_poly = dom.intt(enc(_blind(seed, "rand", n)))
-    for c in kzg_commit_batch(srs, perm_z_polys + lookup_z_polys + [random_poly]):
+    rand_dev = enc(_blind(seed, "rand", n))
+    for c in commit_vals(perm_z_devs + lookup_z_devs + [rand_dev]):
         tr.write_point(c)
 
     # --- phase 4: vanishing / quotient ------------------------------------
     _mark("grand products committed")
     y = tr.squeeze_challenge()
 
-    instance_polys = _intt_cols(dom, inst_dev)
-    # release base-domain value tables before the extended-domain walk
-    vals_dev = advice_dev = inst_dev = fixed_dev = None
-    perm_z_devs = lookup_z_devs = None
-    for lk in lookups:
-        for key in ("a_dev", "s_dev", "a_perm_dev", "s_perm_dev"):
-            lk.pop(key, None)
+    # values -> coefficient forms, each value column freed as its
+    # coefficients appear
+    vals_dev = None
+    advice_polys = _intt_consume(dom, advice_dev)
+    instance_polys = _intt_consume(dom, inst_dev)
+    perm_z_polys = _intt_consume(dom, perm_z_devs)
+    lookup_z_polys = _intt_consume(dom, lookup_z_devs)
+    random_poly = _intt_consume(dom, [rand_dev])[0]
+    advice_dev = inst_dev = perm_z_devs = lookup_z_devs = rand_dev = None
+    lk_polys = []
+    for i in range(0, len(perm_host), g):
+        lk_polys += _intt_consume(dom, [enc(col) for col in perm_host[i : i + g]])
+    for i, lk in enumerate(lookups):
+        lk["a_poly"] = lk_polys[2 * i]
+        lk["s_poly"] = lk_polys[2 * i + 1]
+    _mark("coefficient forms")
     h_chunk_polys = _build_quotient(
         pk, dom, cs, advice_polys, list(pk.fixed_polys), instance_polys,
         pk.sigma_polys, perm_z_polys, lookups, lookup_z_polys,
@@ -383,7 +383,7 @@ def prove(
     pw_tables: dict[int, torch.Tensor] = {}
     for _, pt, _w in plan5:
         if pt not in pw_tables:
-            pw_tables[pt] = _coset_x_outer(1, 1, n, dom.k, device, base=pt)
+            pw_tables[pt] = _pow_table(pt, n, dom.k, device)
     ev_dev = [poly_ops.eval_poly_with_powers(F, p, pw_tables[pt]) for p, pt, _ in plan5]
     ev_vals = F.decode(limbs_from_torch(torch.stack(ev_dev)))
     del pw_tables
@@ -422,21 +422,37 @@ def prove(
     return tr.finalize()
 
 
-# --- per-pk device caches (encode fixed/sigma value tables once) -------------
+def _commit_values(srs: SRS, dom, cols) -> list:
+    """Commitments of value columns over H, in order: over the Lagrange
+    basis when the SRS has the domain's size, else over the monomial basis
+    from transient coefficient forms (one NTT group at a time). The points
+    are the same either way."""
+    if srs.n == dom.n:
+        return kzg_commit_batch(srs, cols, basis="lagrange")
+    out = []
+    g = _ntt_group(dom.n)
+    for i in range(0, len(cols), g):
+        out += kzg_commit_batch(srs, _intt_cols(dom, cols[i : i + g]))
+    return out
 
 
-def _fixed_dev(pk: ProvingKey, device):
-    cache = getattr(pk, "_fixed_dev", None)
-    if cache is None:
-        cache = pk._fixed_dev = [_encode_mont(col, device) for col in pk.fixed_values]
-    return cache
-
-
-def _sigma_dev(pk: ProvingKey):
-    cache = getattr(pk, "_sigma_dev", None)
-    if cache is None:
-        cache = pk._sigma_dev = [pk.sigma_col_mont(j) for j in range(len(pk.sigma_values))]
-    return cache
+def _intt_consume(dom, cols: list) -> list:
+    """_intt_cols that frees each value column as its coefficient form
+    appears (the caller's list is emptied in place), so values and
+    coefficients never fully coexist: the extra device memory is one NTT
+    group, not a second copy of every column."""
+    out: list = []
+    g = _ntt_group(dom.n)
+    for i in range(0, len(cols), g):
+        grp = cols[i : i + g]
+        if len(grp) == 1:
+            out.append(dom.intt(grp[0]))
+        else:
+            out.extend(dom.intt_batch(torch.stack(grp)).unbind(0))
+        cols[i : i + g] = [None] * len(grp)
+        del grp
+    cols.clear()
+    return out
 
 
 def _combine(group, v_ch, device):
@@ -458,7 +474,7 @@ def _combine(group, v_ch, device):
                 polyc = torch.cat([polyc, polyc.new_zeros(maxlen - polyc.shape[0], N_LIMBS)])
             padded.append(polyc)
         stacked = torch.stack(padded)  # (B, n, 16)
-        vp_m = _encode_mont(vpows[b0 : b0 + batch], device)  # (B, 16)
+        vp_m = encode_column(vpows[b0 : b0 + batch], device)  # (B, 16)
         weighted = fo.mont_mul_big(F, stacked, vp_m[:, None, :])
         part = poly_ops.sum_mont(F, weighted)
         acc = part if acc is None else fo.add_mod(F, acc, part)
@@ -471,51 +487,68 @@ def _rot_point(x: int, omega: int, rot: int) -> int:
     return x * pow(pow(omega, -1, FR_MOD), -rot, FR_MOD) % FR_MOD
 
 
-def _decode_mont_packed(arr, count: int | None = None) -> np.ndarray:
-    """(n, 16) Montgomery device tensor -> host (count, 8) packed uint32
-    words in standard form."""
-    std = fo.from_mont(F, arr if count is None else arr[:count])
-    return pack_host(limbs_from_torch(std))
+def _std_words(arr: torch.Tensor, count: int, n: int) -> torch.Tensor:
+    """(n, 16) Montgomery tensor -> (n, 8) int32 standard-form words (the
+    bit patterns of the packed uint32 words) of its first `count` rows,
+    zero below, on its device."""
+    words = limbs_to_words(fo.from_mont(F, arr[:count]))
+    return torch.cat([words, words.new_zeros(n - count, words.shape[1])])
 
 
-def _permute_lookup_packed(a: np.ndarray, s: np.ndarray):
-    """Vectorized halo2 lookup permutation over packed (u, 8) uint32 rows:
-    A' value-sorted; each first occurrence of an A'-run aligned with one
-    matching S' entry; leftovers fill the rest."""
+def _words_host(words: torch.Tensor) -> np.ndarray:
+    return words.cpu().numpy().view(np.uint32)
+
+
+def _value_order(words: torch.Tensor, minor: torch.Tensor | None = None) -> torch.Tensor:
+    """Stable value order of (m, 8) int32 word rows (little-endian 256-bit
+    values), with `minor` as the least significant key: stable sorts from
+    the least significant key to the most, each word as a non-negative
+    int64 (np.lexsort's order)."""
+    order = torch.arange(words.shape[0], device=words.device)
+    keys = ([minor] if minor is not None else []) + [words[:, w] for w in range(words.shape[1])]
+    for key in keys:
+        k = key.to(torch.int64) & 0xFFFFFFFF
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+def _run_starts(rows: torch.Tensor) -> torch.Tensor:
+    starts = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    starts[1:] = (rows[1:] != rows[:-1]).any(dim=1)
+    return starts
+
+
+def _permute_lookup(a: torch.Tensor, s: torch.Tensor):
+    """halo2 lookup permutation over (u, 8) int32 word rows, on their
+    device: A' value-sorted; each first occurrence of an A'-run aligned
+    with one matching S' entry; leftovers, in value order, fill the rest.
+    The result is a function of the values alone."""
     u = a.shape[0]
-    order_a = np.lexsort(tuple(a[:, w] for w in range(a.shape[1])))
-    a_perm = a[order_a]
-    first = np.empty(u, dtype=bool)
-    first[0] = True
-    np.any(a_perm[1:] != a_perm[:-1], axis=1, out=first[1:])
+    a_perm = a[_value_order(a)]
+    first = _run_starts(a_perm)
     distinct = a_perm[first]
-    # merge distinct-A (flag 0) with S rows (flag 1), value-major sort with
-    # the flag as the final minor key
-    comb = np.concatenate([distinct, s])
-    flag = np.concatenate(
-        [np.zeros(len(distinct), np.uint32), np.ones(s.shape[0], np.uint32)]
-    )
-    keys = (flag,) + tuple(comb[:, w] for w in range(comb.shape[1]))
-    oc = np.lexsort(keys)
+    # merge distinct-A (flag 0) with S rows (flag 1): value order, the flag
+    # as the least significant key
+    comb = torch.cat([distinct, s])
+    flag = torch.cat([torch.zeros(distinct.shape[0], dtype=torch.int32, device=a.device),
+                      torch.ones(s.shape[0], dtype=torch.int32, device=a.device)])
+    oc = _value_order(comb, flag)
     cs_rows, cf = comb[oc], flag[oc]
-    run_start = np.empty(len(cs_rows), dtype=bool)
-    run_start[0] = True
-    np.any(cs_rows[1:] != cs_rows[:-1], axis=1, out=run_start[1:])
-    run_id = np.cumsum(run_start) - 1
-    n_runs = run_id[-1] + 1 if len(run_id) else 0
-    has_d = np.zeros(n_runs, bool)
+    run_start = _run_starts(cs_rows)
+    run_id = torch.cumsum(run_start.to(torch.int64), 0) - 1
+    n_runs = int(run_start.sum())
+    has_d = torch.zeros(n_runs, dtype=torch.bool, device=a.device)
     has_d[run_id[cf == 0]] = True
-    s_count = np.bincount(run_id[cf == 1], minlength=n_runs)
-    if (has_d & (s_count == 0)).any():
-        bad = np.nonzero(has_d & (s_count == 0))[0][0]
-        bad_val = cs_rows[np.searchsorted(run_id, bad)]
-        raise ValueError(f"lookup value {packed_to_ints(bad_val[None, :])[0]} not in table")
-    left_counts = s_count - has_d.astype(np.int64)
-    run_vals = cs_rows[run_start]
-    leftovers = np.repeat(run_vals, left_counts, axis=0)
-    s_perm = np.empty_like(a_perm)
+    s_count = torch.bincount(run_id[cf == 1], minlength=n_runs)
+    missing = has_d & (s_count == 0)
+    if bool(missing.any()):
+        bad = int(torch.nonzero(missing)[0])
+        bad_val = cs_rows[run_start][bad]
+        raise ValueError(f"lookup value {packed_to_ints(_words_host(bad_val[None, :]))[0]} not in table")
+    leftovers = torch.repeat_interleave(cs_rows[run_start], s_count - has_d.to(torch.int64), dim=0)
+    s_perm = torch.empty_like(a_perm)
     s_perm[first] = distinct
-    s_perm[~first] = leftovers[: u - len(distinct)]
+    s_perm[~first] = leftovers[: u - distinct.shape[0]]
     return a_perm, s_perm
 
 
@@ -604,7 +637,7 @@ def _build_quotient(
     ratio = ext_n // n
     lact_vals = np.zeros(n, dtype=np.int64)
     lact_vals[:u] = 1
-    lact_poly = dom.intt(_encode_mont(lact_vals, device))
+    lact_poly = dom.intt(encode_column(lact_vals, device))
     by_kind = {"advice": advice_polys, "fixed": fixed_polys, "instance": instance_polys}
     zpolys = {}
     for jj in range(len(cs.perm_columns)):
@@ -624,41 +657,21 @@ def _build_quotient(
         vshort.append(pow((a0 - 1) % FR_MOD, -1, FR_MOD))
         a0 = a0 * wn % FR_MOD
 
-    acc_ext = _quotient_full(
+    # the final transform's tables exist before the cache is sized, so every
+    # prove with this domain sizes it alike
+    dom.prepare_intt_extended(lact_poly.device)
+    acc_ext = _quotient_cosets(
         pk, dom, cs, by_kind, zpolys, lact_poly, chunks,
         theta, beta, gamma, y, u, vshort, device,
     )
+    by_kind = zpolys = None
     h_coeffs = dom.intt_extended(acc_ext)
     # pieces beyond the degree bound are identically zero (see _n_h)
     return [h_coeffs[a * n : (a + 1) * n] for a in range(_n_h(cs, dom))]
 
 
-def _quotient_full(
-    pk, dom, cs, by_kind, zpolys, lact_poly, chunks, theta, beta, gamma, y,
-    u, vshort, device,
-):
-    """Full-domain quotient path: every queried column extended to
-    2^(k+j) once (batched), the walk over whole extended columns. At k=20,
-    j=3 that holds ~16 columns of 2^23 rows (512 MiB each as int32) — it
-    fits the 80 GB card, which is why this path, not the JAX package's
-    coset-streaming one, is the port's."""
-    ext_n = dom.extended_n
-    n = dom.n
-    ratio = ext_n // n
-    mm = lambda a, b: fo.mont_mul_big(F, a, b)  # noqa: E731
-    ad = lambda a, b: fo.add_mod(F, a, b)  # noqa: E731
-    sb = lambda a, b: fo.sub_mod(F, a, b)  # noqa: E731
-    neg = lambda a: fo.neg_mod(F, a)  # noqa: E731
-    cache: dict = {}
-
-    def padded(polyc):
-        return torch.cat([polyc, polyc.new_zeros(ext_n - polyc.shape[0], N_LIMBS)])
-
-    def ext(polyc, tag):
-        if tag not in cache:
-            cache[tag] = dom.ntt_extended(padded(polyc))
-        return cache[tag]
-
+def _quotient_plan(cs, by_kind, zpolys, pk, lact_poly):
+    """[(tag, coefficient column)] of every column the walk reads."""
     qs = _Queries.from_cs(cs)
     plan: list[tuple] = []
     for kind in ("advice", "fixed", "instance"):
@@ -666,70 +679,162 @@ def _quotient_full(
             plan.append(((kind, col), by_kind[kind][col]))
     plan += [(tag, p) for tag, p in zpolys.items()]
     plan += [("l0", pk.l0), ("l_last", pk.l_last), ("l_active", lact_poly)]
-    g = _ntt_group(ext_n)
-    for i in range(0, len(plan), g):
-        grp = plan[i : i + g]
-        if len(grp) == 1:
-            ext(grp[0][1], grp[0][0])
-            continue
-        stacked = torch.stack([padded(p) for _, p in grp])
-        for (t, _), r in zip(grp, dom.ntt_extended_batch(stacked).unbind(0)):
-            cache[t] = r
-        del stacked
-
-    def q(kind, col, rot):
-        e = ext(by_kind[kind][col], (kind, col))
-        return torch.roll(e, -rot * ratio, dims=0) if rot else e
-
-    def const(c):
-        return _bcast(_mont_scalar(c, device), ext_n)
-
-    # X values on the extended coset: g * w_ext^i (hi (x) lo outer product)
-    x_e = _coset_x_outer(dom.g_coset, dom.extended_omega, ext_n, dom.extended_k, device)
-
-    acc = torch.zeros((ext_n, N_LIMBS), dtype=torch.int32, device=device)
-    y_c = const(y)
-
-    def fold(t):
-        nonlocal acc
-        acc = fo.mont_mul_add(F, acc, y_c, t)
-
-    env = _WalkEnv(
-        mm=mm, ad=ad, sb=sb, neg=neg, const=const, q=q, fold=fold,
-        mad=lambda a, b, c: fo.mont_mul_add(F, a, b, c),
-        msb=lambda a, b, c: fo.mont_mul_add(F, a, b, c, sub=True),
-        zcol=lambda tag: ext(zpolys[tag], tag),
-        l0=ext(pk.l0, "l0"), llast=ext(pk.l_last, "l_last"),
-        lact=ext(lact_poly, "l_active"),
-        x_vals=x_e, one=fo.one_mont(F, (ext_n,), device=device),
-        roll=lambda arr, k: torch.roll(arr, -k * ratio, dims=0),
-        n_perm_z=len([1 for t in zpolys if t[0] == "permz"]),
-    )
-    _quotient_walk(cs, chunks, theta, beta, gamma, u, env)
-    cache.clear()
-
-    # vanishing inverse: period `ratio` over the extended domain
-    vinv = _encode_mont(vshort, device).repeat(ext_n // ratio, 1)
-    return mm(acc, vinv)
+    return plan
 
 
-def _coset_x_outer(g: int, w: int, count: int, k: int, device, base: int | None = None):
-    """(count, 16) Montgomery table t[i] = g * w^i (or base^i when base is
-    given), as a hi (x) lo outer product of two host tables."""
+def _static_uses(cs, zpolys) -> dict:
+    """Reads of each column by the walk, from the constraint system alone
+    (witness-independent); l0, l_last and l_active rank first."""
+    uses: dict = {}
+
+    def count(tag):
+        uses[tag] = uses.get(tag, 0) + 1
+
+    for _, expr in cs.gates:
+        for kind, c_, _rot in expr.queries():
+            count((kind, c_))
+    for jj, cref in enumerate(cs.perm_columns):
+        count((cref.kind, cref.index))
+        count(("sigma", jj))
+    for a in range(len([t for t in zpolys if t[0] == "permz"])):
+        uses[("permz", a)] = uses.get(("permz", a), 0) + 3
+    for li, lkexprs in enumerate(cs.lookups):
+        for e in lkexprs.inputs + lkexprs.tables:
+            for kind, c_, _rot in e.queries():
+                count((kind, c_))
+        uses[("lkz", li)] = 3
+        uses[("lka", li)] = 4
+        uses[("lks", li)] = 2
+    for t in ("l0", "l_last", "l_active"):
+        uses[t] = 1 << 30  # read by nearly every non-gate term
+    return uses
+
+
+# device memory the coset walk keeps free for its transients (an NTT
+# group's working set, the terms of one constraint) when it sizes its cache
+COSET_RESERVE_BYTES = 8 << 30
+
+
+def _coset_cache_cap(n: int, n_cols: int, device):
+    """Columns one coset's cache may hold: SPT_COSET_CACHE_COLS when set;
+    else on the card the plan's n_cols, limited to what the card's total
+    memory holds beyond the tensors allocated now and COSET_RESERVE_BYTES
+    (so the cap depends on the prove, not on memory held outside it); else
+    (the CPU) no cap."""
+    device = resolve_device(device)
+    env = os.environ.get("SPT_COSET_CACHE_COLS")
+    if env:
+        return int(env)
+    if device.type != "cuda":
+        return None
+    room = torch.cuda.get_device_properties(device).total_memory - torch.cuda.memory_allocated(device)
+    return max(0, min(n_cols, (room - COSET_RESERVE_BYTES) // (n * N_LIMBS * 4)))
+
+
+def _quotient_cosets(
+    pk, dom, cs, by_kind, zpolys, lact_poly, chunks, theta, beta, gamma, y,
+    u, vshort, device,
+):
+    """Coset-streaming quotient path. The extended coset g*H_ext is the
+    disjoint union of `ratio` cosets shift_r*H, shift_r = g*w_ext^r; the
+    walk runs once per coset with every column at n rows, so the peak is
+    the coefficient forms plus one coset's cache instead of every queried
+    column at 2^(k+j) rows. Rotations by omega stay inside a coset
+    (omega = w_ext^ratio), the vanishing inverse is a per-coset constant,
+    and one interleave gives the evaluations on the whole extended coset.
+    The cache holds at most _coset_cache_cap columns, filled in the order of
+    their static use count; a column beyond it is re-transformed at each
+    read."""
+    ext_n = dom.extended_n
+    n = dom.n
+    ratio = ext_n // n
     P = FR_MOD
-    if base is not None:
-        g, w = 1, base
+    mm = lambda a, b: fo.mont_mul_big(F, a, b)  # noqa: E731
+    ad = lambda a, b: fo.add_mod(F, a, b)  # noqa: E731
+    sb = lambda a, b: fo.sub_mod(F, a, b)  # noqa: E731
+    neg = lambda a: fo.neg_mod(F, a)  # noqa: E731
+    plan = _quotient_plan(cs, by_kind, zpolys, pk, lact_poly)
+    cache_cap = _coset_cache_cap(n, len(plan), device)
+    log.info("quotient coset cache: %s of %d columns", cache_cap, len(plan))
+    if cache_cap is not None:
+        uses = _static_uses(cs, zpolys)
+        plan.sort(key=lambda e: -uses.get(e[0], 0))
+    om_pows = _pow_table(dom.omega, n, dom.k, device)
+    g = _ntt_group(n)
+    accs = []
+    for r in range(ratio):
+        shift = dom.g_coset * pow(dom.extended_omega, r, P) % P
+        scale = _pow_table(shift, n, dom.k, device)  # shift^j
+        cache: dict = {}
+        prefill = plan if cache_cap is None else plan[:cache_cap]
+        for i in range(0, len(prefill), g):
+            grp = prefill[i : i + g]
+            if len(grp) == 1:
+                t_, p_ = grp[0]
+                cache[t_] = dom.ntt(mm(p_, scale))
+                continue
+            scaled = mm(torch.stack([p_ for _, p_ in grp]), scale[None])
+            for (t_, _), e_ in zip(grp, dom.ntt_batch(scaled).unbind(0)):
+                cache[t_] = e_
+            del scaled
+
+        def col(polyc, tag):
+            if tag in cache:
+                return cache[tag]
+            return dom.ntt(mm(polyc, scale))
+
+        def q(kind, c_, rot):
+            e = col(by_kind[kind][c_], (kind, c_))
+            return torch.roll(e, -rot, dims=0) if rot else e
+
+        def const(c):
+            return _bcast(_mont_scalar(c, device), n)
+
+        acc = torch.zeros((n, N_LIMBS), dtype=torch.int32, device=device)
+        y_c = const(y)
+
+        def fold(t):
+            nonlocal acc
+            acc = fo.mont_mul_add(F, acc, y_c, t)
+
+        env = _WalkEnv(
+            mm=mm, ad=ad, sb=sb, neg=neg, const=const, q=q, fold=fold,
+            mad=lambda a, b, c: fo.mont_mul_add(F, a, b, c),
+            msb=lambda a, b, c: fo.mont_mul_add(F, a, b, c, sub=True),
+            zcol=lambda tag: col(zpolys[tag], tag),
+            l0=col(pk.l0, "l0"), llast=col(pk.l_last, "l_last"),
+            lact=col(lact_poly, "l_active"),
+            x_vals=mm(om_pows, _bcast(_mont_scalar(shift, device), n)),
+            one=fo.one_mont(F, (n,), device=device),
+            roll=lambda arr, k: torch.roll(arr, -k, dims=0),
+            n_perm_z=len([1 for t in zpolys if t[0] == "permz"]),
+        )
+        _quotient_walk(cs, chunks, theta, beta, gamma, u, env)
+        env = None
+        cache.clear()
+        # the vanishing inverse is constant on this coset
+        accs.append(mm(acc, _bcast(_mont_scalar(vshort[r], device), n)))
+        del acc
+        log.info("quotient coset %d/%d done", r + 1, ratio)
+    # interleave: extended position i*ratio + r <-> shift_r * omega^i
+    return torch.stack(accs, dim=1).reshape(ext_n, N_LIMBS)
+
+
+def _pow_table(base: int, count: int, k: int, device):
+    """(count, 16) Montgomery table t[i] = base^i, as a hi (x) lo outer
+    product of two host tables."""
+    P = FR_MOD
     nl = 1 << (k // 2)
     nh = count // nl
-    lo_ints, acc = [], g % P
+    lo_ints, acc = [], 1
     for _ in range(nl):
         lo_ints.append(acc)
-        acc = acc * w % P
-    w_nl = pow(w, nl, P)
+        acc = acc * base % P
+    w_nl = pow(base, nl, P)
     hi_ints, acc = [], 1
     for _ in range(nh):
         hi_ints.append(acc)
         acc = acc * w_nl % P
-    lo_m = _encode_mont(lo_ints, device)
-    hi_m = _encode_mont(hi_ints, device)
+    lo_m = encode_column(lo_ints, device)
+    hi_m = encode_column(hi_ints, device)
     return fo.mont_mul_big(F, hi_m[:, None, :], lo_m[None, :, :]).reshape(count, N_LIMBS)

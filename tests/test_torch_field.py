@@ -153,3 +153,36 @@ def test_poseidon_dev_matches_jax():
     got = PoseidonDev(device="cpu").hash2_batch(a, b, domain=3)
     assert got == JaxPoseidonDev().hash2_batch(a, b, domain=3)
     assert got == [poseidon_fr.hash2(x, y, domain=3) for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("shape", ["small", "negative", "big", "mixed"])
+def test_objcol_to_packed_and_device_codec(shape):
+    """Assignment columns -> packed canonical words, equal to the JAX
+    package's objcol_to_packed on every value shape (the port also sends
+    mixed columns' small values through the vectorized path); the packed
+    words cross to limbs and back (limbs_to_words) on the tensor's device
+    unchanged."""
+    from scroll_prover_tpu.fields.limbs import objcol_to_packed as jpack
+    from scroll_prover_tpu_torch.fields.bn254 import FR_MOD
+    from scroll_prover_tpu_torch.fields.limbs import (
+        ints_to_limbs, objcol_to_packed, packed_to_torch,
+    )
+
+    rng = np.random.default_rng(7)
+    small = [int(v) for v in rng.integers(0, 1 << 62, 40)] + [0, 1, (1 << 62) - 1, (1 << 63) - 1]
+    big = [int.from_bytes(rng.bytes(32), "little") for _ in range(40)] + [FR_MOD, FR_MOD - 1, FR_MOD + 5]
+    cols = {
+        "small": small,
+        "negative": [-1, -(1 << 70), 5, 0, -FR_MOD - 3],
+        "big": big,
+        "mixed": small + big + [-7, 1 << 62, (1 << 62) + 1, 2**64] + small,
+    }
+    col = np.empty(len(cols[shape]), dtype=object)
+    col[:] = cols[shape]
+    got = objcol_to_packed(col)
+    assert got.dtype == np.uint32 and got.shape == (len(col), 8)
+    assert np.array_equal(got, jpack(col))
+    want_limbs = ints_to_limbs([int(v) % FR_MOD for v in col])
+    assert np.array_equal(limbs_from_torch(packed_to_torch(got, "cpu")), want_limbs)
+    words = limbs_to_words(limbs_to_torch(want_limbs, "cpu"))
+    assert np.array_equal(words.numpy().view(np.uint32), got)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor the JAX package, and its
 entry points never drift to the CPU on their own."""
+import copy
 import os
 import pkgutil
 import subprocess
@@ -16,6 +17,7 @@ from scroll_prover_tpu_torch.ops.ntt_fast import FastDomain
 from scroll_prover_tpu_torch.ops.ntt_tile import TiledDomain
 from scroll_prover_tpu_torch.ops.poseidon_dev import PoseidonDev
 from scroll_prover_tpu_torch.proof_system import kzg
+from scroll_prover_tpu_torch.proof_system.plonk import prover as tprover
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -61,13 +63,16 @@ def test_chip_smoke_refuses_without_cuda():
 
 @pytest.mark.parametrize(
     "entry",
-    ["generate", "generate_fast", "load", "srs_from_numpy", "tiled_domain", "fast_domain", "poseidon_dev"],
+    ["generate", "generate_fast", "load", "srs_from_numpy", "tiled_domain", "fast_domain", "poseidon_dev",
+     "prove", "coset_cache_cap"],
 )
-def test_entry_points_refuse_silent_cpu(entry, tmp_path):
+def test_entry_points_refuse_silent_cpu(entry, tmp_path, monkeypatch):
     """Called without device="cpu" on a machine with no card, an entry point
     raises instead of computing on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
+    # a cache cap set by the caller must not skip the device check
+    monkeypatch.setenv("SPT_COSET_CACHE_COLS", "3")
     calls = {
         "generate": lambda: kzg.SRS.generate(2),
         "generate_fast": lambda: kzg.SRS.generate_fast(2),
@@ -78,9 +83,26 @@ def test_entry_points_refuse_silent_cpu(entry, tmp_path):
         "tiled_domain": lambda: TiledDomain(4),
         "fast_domain": lambda: FastDomain(4),
         "poseidon_dev": lambda: PoseidonDev(),
+        # prove (whose quotient streams the cosets) runs on its SRS's device
+        "prove": lambda: _prove_on_cuda_srs(),
+        "coset_cache_cap": lambda: tprover._coset_cache_cap(1 << 20, 600, None),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+def _prove_on_cuda_srs():
+    """prove() of a small circuit whose keys were made on the CPU, with an
+    SRS that names the card."""
+    from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen
+    from tests.test_torch_plonk import CIRCUITS, INSTANCE, K
+
+    srs = kzg.SRS.generate(K, device="cpu")
+    circ = CIRCUITS["bench"][1]()
+    pk, _vk = keygen(srs, K, circ)
+    on_card = copy.copy(srs)  # generate() caches srs: leave it as it is
+    on_card.device = torch.device("cuda")
+    tprover.prove(on_card, pk, circ, INSTANCE, seed=b"isolation")
 
 
 def _saved(tmp_path):
@@ -112,3 +134,52 @@ def test_new_kernel_wrappers_reject_cpu_tensors(kernel):
     }
     with pytest.raises(ValueError):
         calls[kernel]()
+
+
+_AUDIT = """
+import importlib, os, pkgutil, sys
+jax_dir = os.path.realpath(sys.argv[1]) + os.sep
+seen = []
+
+def paths(event, args):
+    if event == "subprocess.Popen":
+        return [a for a in args[1] if isinstance(a, (str, bytes, os.PathLike))]
+    return [a for a in args[:2] if isinstance(a, (str, bytes, os.PathLike))]
+
+def hook(event, args):
+    if event in ("open", "subprocess.Popen", "os.mkdir", "os.rename", "os.replace", "os.remove"):
+        for p in paths(event, args):
+            p = os.fsdecode(p)
+            seen.append((event, os.path.realpath(p) if os.sep in p else p))
+
+sys.addaudithook(hook)
+import scroll_prover_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from scroll_prover_tpu_torch.trie import zktrie
+from scroll_prover_tpu_torch.l2types import BlockTrace
+from scroll_prover_tpu_torch.witness import chunk_trace_to_witness_block
+from scroll_prover_tpu_torch.zkevm import ScrollSuperCircuit
+from tests.torch_trace_cases import trace_dict
+zktrie.native_available()
+wb = chunk_trace_to_witness_block([BlockTrace.from_json(trace_dict())])
+ScrollSuperCircuit.new_from_block(wb).min_k()
+bad = [e for e in seen if e[1].startswith(jax_dir)]
+print(len(seen), bad)
+assert not bad, bad
+"""
+
+
+def test_port_reads_and_builds_nothing_of_the_jax_package():
+    """Importing every module, building the native zktrie and making a
+    witness open, spawn, create or rename nothing under scroll_prover_tpu/
+    (audit hooks in a fresh interpreter)."""
+    jax_dir = os.path.join(ROOT, "scroll_prover_tpu") + os.sep
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", _AUDIT, jax_dir], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert int(out.stdout.split()[0]) > 0

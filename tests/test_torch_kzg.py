@@ -84,3 +84,24 @@ def test_open_matches_jax_and_cross_verifies(srs_pair):
     assert tkzg.verify_single_open(t, com, z, tv, tw)
     assert jkzg.verify_single_open(j, com, z, tv, tw)
     assert not tkzg.verify_single_open(t, com, z, (tv + 1) % FR_MOD, tw)
+
+
+def test_prove_over_a_larger_srs():
+    """A circuit at K = 6 proved over an SRS of 2^7 points: the port's value
+    columns then commit over the monomial basis from transient coefficient
+    forms (the Lagrange basis of a larger SRS is another domain's), and the
+    proof bytes equal the JAX package's."""
+    from scroll_prover_tpu.proof_system.plonk.keygen import keygen as jkeygen
+    from scroll_prover_tpu.proof_system.plonk.prover import prove as jprove
+    from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen as tkeygen
+    from scroll_prover_tpu_torch.proof_system.plonk.prover import prove as tprove
+    from scroll_prover_tpu_torch.proof_system.plonk.verifier import verify as tverify
+    from tests.test_torch_plonk import INSTANCE, SEED, JaxMul, TorchMul
+
+    js, ts = jkzg.SRS.generate(K + 1), tkzg.SRS.generate(K + 1, device="cpu")
+    jc, tc = JaxMul(), TorchMul()
+    jpk, _ = jkeygen(js, K, jc)
+    tpk, tvk = tkeygen(ts, K, tc)
+    tp = tprove(ts, tpk, tc, INSTANCE, seed=SEED)
+    assert tp == jprove(js, jpk, jc, INSTANCE, seed=SEED)
+    assert tverify(ts, tvk, INSTANCE, tp)

@@ -6,7 +6,9 @@
                                          # torch.profiler (device time by kernel,
                                          # device busy share, per-launch time
                                          # beside the per-launch bound at the
-                                         # main path's shapes) and cProfile
+                                         # main path's shapes, the device work
+                                         # inside the NTT's profiler range and
+                                         # outside it) and cProfile
                                          # (host), the same for two more
                                          # chunk proves; summaries printed,
                                          # full tables in DIR
@@ -17,14 +19,18 @@ Phases, each fatal on failure (non-zero exit, no ok line):
   2. each kernel (K1-K8, each K1 mode) against its plain PyTorch version on
      the card, exact equality (integer arithmetic: tolerance 0), at the main
      path's shapes, timed with CUDA events in turns (plain, kernel, kernel,
-     plain); the MSMs are also checked against host Pippenger;
+     plain); the MSMs are also checked against host Pippenger; K2's tile
+     size swept (2^8 to 2^11 elements per block) at the chunk's 1- and
+     4-column passes, beside the runtime's resident blocks per SM;
   3. the main path at full size: SRS.generate_fast(20), keygen of
      BenchCircuit (4096 rows) at k = 20, prove, verify (must be True), the
      proof's sha256 equal to PROOF_SHA256, with every kernel's launch count
      taken over this phase alone (K1, K1as, K2-K5 each must be > 0), peak
-     device memory and peak host RSS;
+     device memory and peak host RSS; then, after the counts are read, K2
+     against its plain version at every pass this phase gave it (the
+     extended iNTT's 2^23 passes included), with the phase's own tables;
   4. the alternative engines at k = 20 on phase 3's SRS: FastDomain radix 2
-     and radix 4 (K7/K8) against the tiled NTT (K1/K2), the v1 MSM (K6)
+     and radix 4 (K7/K8) against the tiled NTT (K2), the v1 MSM (K6)
      against the v2 MSM (K3/K4) over 4 columns of 2^20 scalars, msm_tile
      against msm_tile_host, PoseidonDev against host Poseidon; K6-K8's
      launch counts taken over this phase alone (each must be > 0); then K6
@@ -46,7 +52,8 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      > 0), its peak device memory and peak host RSS; then, after the counts
      are read, K3 against its plain version on the chunk's own densest
      commit group (its points, digits and signs, captured during the
-     prove), K4 on that K3 output, and K2 at every shape the chunk gave it;
+     prove), K4 on that K3 output, and K2 at every pass the chunk gave it
+     (shape, level, stride, tables), with the chunk's own tables;
   6. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -84,7 +91,7 @@ KERNELS = {
            "ntt_tile.py:184"),
     "K1as": ("field_ops", "add_sub_k1", ("k1as_add", "k1as_sub", "k1as_neg"), "mont_mul.cu",
              "field_ops.py:99/106/115"),
-    "K2": ("ntt_tile", "_bntt_k2", ("k2_bntt",), "ntt.cu", "ntt_tile.py:126"),
+    "K2": ("ntt_tile", "_ntt_pass_k2", ("k2_ntt_pass",), "ntt.cu", "ntt_tile.py:126"),
     "K3": ("msm_tile", "_accum_k3", ("k3_count", "k3_scan", "k3_scatter", "k3_msm_accum"), "msm.cu",
            "msm_tile.py:531"),
     "K4": ("msm_tile", "_lane_reduce_k4", ("k4_msm_reduce",), "msm.cu", "msm_tile.py:608"),
@@ -204,19 +211,23 @@ def work(key: str, *args):
     MSM kernels count the point adds these digits need (digit 0 adds
     nothing), as a 0-d device tensor, so that work() never waits for the
     card; bound() reads it. K1 and K1as take the arguments of
-    `field_ops._k1_launch` (field, mode, operands, limb axis), which every
+    `field_ops._k1_launch` (field, mode, operands), which every
     mode passes through; an operand given twice (a squaring, z*z - z) is
     read once. The product modes count one product per element, add, sub
     and neg none: they are bytes-bound."""
     if key in ("K1", "K1as"):
-        _f, mode, ops, _limb_axis = args
+        _f, mode, ops = args
         n = torch.broadcast_shapes(*(x.shape for x in ops)).numel() // 16
         distinct = {(x.data_ptr(), tuple(x.shape), x.stride()): x for x in ops}.values()
         return (sum(_distinct_bytes(x) for x in distinct) + 64 * n,
                 MULS_PER_MONT * n if k1_key(mode) == "K1" else 0)
-    if key == "K2":
-        v, tw, k = args
-        return 8 * v.numel() + 4 * tw.numel(), MULS_PER_MONT * (v.numel() // 16) * k // 2
+    if key == "K2":  # a pass: rows in and out once, each table once; k/2 products per
+        # element in the stages plus one per table product it applies
+        x, tw, k, _stride, twmid, pre, post, n_inv, _last, _inplace = args
+        tables = [t for t in (tw, twmid, pre, post, n_inv) if t is not None]
+        products = k / 2 + sum(t is not None for t in (twmid, pre, post, n_inv))
+        return 8 * x.numel() + sum(4 * t.numel() for t in tables), \
+            MULS_PER_MONT * (x.numel() // 16) * products
     if key == "K3":  # output: the (CW, S, 32) per-slot buckets, 96 B each
         from scroll_prover_tpu_torch.ops.msm_tile import _slots
 
@@ -250,17 +261,14 @@ def check_k1(dev, gen, rows):
     K1; a + b, a - b, -a as K1as) against its plain version, in every
     operand layout the main path gives it, each at 2^23 Fr elements (the
     extended quotient's column length): row-major (timed, in turns with the
-    plain version), a limb-major plane seen as (N, 16) (an NTT output before
-    its n^-1 scale), views with no single element stride, which the wrapper
-    copies (every operand at once, as the curve adds' slices are), a
-    stride-0 scalar (a challenge broadcast over a column;
-    in the a place for the fused modes, as axpy has it); the product also on
-    (16, N) planes with limb_axis=0 (the four-step twiddles); and Fq at 2^20
-    (the curve arithmetic). Each mode's row in `rows[key]["modes"]`; the
+    plain version), a limb-major plane seen as (N, 16) (element stride 1),
+    views with no single element stride, which the wrapper copies (every
+    operand at once, as the curve adds' slices are), a stride-0 scalar (a
+    challenge broadcast over a column; in the a place for the fused modes,
+    as axpy has it); and Fq at 2^20 (the curve arithmetic). Each mode's row in `rows[key]["modes"]`; the
     K1 row's headline is "mul", K1as's "add"."""
     from scroll_prover_tpu_torch.fields.limbs import FQ_LIMB, FR_LIMB
     from scroll_prover_tpu_torch.ops import field_ops as fo
-    from scroll_prover_tpu_torch.ops import ntt_tile as nt
 
     def call(mode, f, x, y, z):
         """(kernel closure, plain closure, wrapper key) of one mode."""
@@ -304,11 +312,8 @@ def check_k1(dev, gen, rows):
         for name, (f, x, y, z) in cases.items():
             kern_l, plain_l, _ = call(mode, f, x, y, z)
             errs[name] = max_abs_err(kern_l(), plain_l())
-        if mode == "mul":
-            errs["limb-major planes 2^23"] = max_abs_err(
-                fo.mont_mul_k1(FR_LIMB, lm, lm, limb_axis=0), nt._lm_mul_plain(lm, lm))
         ops = {"mul_add": (a, b, c), "mul_sub": (a, b, c), "neg": (a,)}.get(mode, (a, b))
-        bd = bound(*work(key, FR_LIMB, fo.MODE_NAMES.index(mode), ops, -1))
+        bd = bound(*work(key, FR_LIMB, fo.MODE_NAMES.index(mode), ops))
         err = max(errs.values())
         rows[key]["modes"][mode] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bd[0], "bound_by": bd[1],
                                     "max_abs_err": err}
@@ -337,7 +342,6 @@ def check_kernels(dev, gen):
     from scroll_prover_tpu_torch.ops import msm_tile as mt
     from scroll_prover_tpu_torch.ops import ntt_fast as nf
     from scroll_prover_tpu_torch.ops import ntt_tile as nt
-    from scroll_prover_tpu_torch.ops.ntt import EvaluationDomain
 
     rows = {}
 
@@ -351,14 +355,19 @@ def check_kernels(dev, gen):
 
     check_k1(dev, gen, rows)
 
-    # K2: one level of the 2^23 four-step, 2^15 rows x 256
-    w8 = EvaluationDomain(8).omega
-    tw = nt._twpack(w8, 8, dev)
-    v = rand_field(FR_LIMB, 1 << 23, gen, dev).T.contiguous().reshape(16, 1 << 15, 256)
+    # K2: the chunk's densest pass, the first of a 4-column coset transform
+    # at k = 20 (rows of 256 at stride 4096, a per-position scale on load,
+    # the four-step twiddles after the row NTTs)
+    tw, twmid = nt.TiledDomain(20, dev)._tables[False][0]
+    x = rand_field(FR_LIMB, 4 << 20, gen, dev).reshape(4, 1 << 20, 16)
+    pre = rand_field(FR_LIMB, 1 << 20, gen, dev)
+    k2_args = (tw, 8, 4096, twmid, pre, None, None, False, False)
     k_ms, p_ms, ko, po = time_turns(
-        lambda: nt._bntt_k2(v, tw, 8), lambda: nt._bntt_plain(v, tw, 8), 10)
-    record("K2", k_ms, p_ms, max_abs_err(ko, po), v, tw, 8)
-    del v, ko, po
+        lambda: nt._ntt_pass_k2(x, *k2_args), lambda: nt._ntt_pass_plain(x, *k2_args), 10)
+    record("K2", k_ms, p_ms, max_abs_err(ko, po), x, *k2_args)
+    del x, pre, tw, twmid, ko, po
+    k2_control(dev, gen, "phase 2")
+    k2_tile_sweep(dev, gen)
 
     # K7 / K8: levels of the staged 2^20 NTT (2^19 radix-2 / 2^18 radix-4
     # butterflies), held at the first and the last level (the two stride
@@ -440,6 +449,78 @@ def check_kernels(dev, gen):
     return rows
 
 
+def smi_state() -> str:
+    """nvidia-smi's SM clock (now and its maximum), temperature and power
+    draw, read-only."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    )
+    return (out.stdout.strip().splitlines() or [out.stderr.strip()])[0]
+
+
+def k2_control(dev, gen, where: str) -> float:
+    """K2 at phase 2's pass (4 x 2^20, k = 8, stride 4096, scale + twmid;
+    random values), 20 launches back to back by CUDA events: the same work
+    wherever it runs, so that a change in the card's state shows apart from
+    the passes' own times. Logged beside nvidia-smi's clock, temperature
+    and power draw read just after."""
+    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    from scroll_prover_tpu_torch.ops import ntt_tile as nt
+
+    tw, twmid = nt.TiledDomain(20, dev)._tables[False][0]
+    x = rand_field(FR_LIMB, 4 << 20, gen, dev).reshape(4, 1 << 20, 16)
+    args = (tw, 8, 4096, twmid, rand_field(FR_LIMB, 1 << 20, gen, dev), None, None, False, False)
+    nt._ntt_pass_k2(x, *args)
+    ms, _ = event_ms(lambda: nt._ntt_pass_k2(x, *args), 20)
+    log(f"K2 control at {where} (phase 2's pass, 20 launches): {ms:.4f} ms per launch; "
+        f"card now (SM clock, max, degrees C, power): {smi_state()}")
+    return ms
+
+
+def k2_tile_sweep(dev, gen) -> None:
+    """Phase 2, K2's tile size: the chunk's single-column passes and its
+    4-column passes (the first pass of a coset transform, rows of 256 at
+    stride 4096 with twmid and pre; the last, rows of 16) at 2^lg_tile
+    elements per block, lg_tile 8 to 11 (the engine's: 9 at k = 8, 8 at
+    k = 4), each held exactly against the engine's tile, beside the
+    runtime's resident blocks per SM for that tile and the waves of blocks
+    they make."""
+    import ctypes
+
+    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    from scroll_prover_tpu_torch.ops import cuda_lib
+    from scroll_prover_tpu_torch.ops import ntt_tile as nt
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    td = nt.TiledDomain(20, dev)
+    (tw0, twmid0), _, (tw2, _) = td._tables[False]
+    pre = rand_field(FR_LIMB, 1 << 20, gen, dev)
+    occ = {}
+    for lg in (8, 9, 10, 11):
+        buf = (ctypes.c_int * 4)()
+        cuda_lib.check(cuda_lib.lib("ntt").spt_ntt_pass_occupancy(lg, ctypes.addressof(buf)), "K2 occupancy")
+        occ[lg] = tuple(buf)
+        log(f"K2 tile 2^{lg}: {buf[0]} resident blocks per SM ({buf[2]} threads, {buf[1]} registers, "
+            f"{buf[3] // 1024} KiB shared each) on {sms} SMs")
+    for cols in (1, 4):
+        x = rand_field(FR_LIMB, cols << 20, gen, dev).reshape(cols, 1 << 20, 16)
+        for name, args in (("k = 8, stride 4096, twmid+pre", (tw0, 8, 4096, twmid0, pre, None, None, False, False)),
+                           ("k = 4, stride 1, last", (tw2, 4, 1, None, None, None, None, True, False))):
+            want = nt._ntt_pass_k2(x, *args)
+            b = bound(*work("K2", x, *args))
+            for lg in (8, 9, 10, 11):
+                err = max_abs_err(nt._ntt_pass_k2(x, *args, lg_tile=lg), want)
+                ms, _ = event_ms(lambda: nt._ntt_pass_k2(x, *args, lg_tile=lg), 20)
+                blocks = cols << (20 - lg)
+                log(f"K2 tile sweep ({cols}, 2^20) {name}, tile 2^{lg}: {ms:.4f} ms by CUDA events, "
+                    f"{100 * b[0] / ms:.1f}% of bound {b[0]:.4f} ms; {blocks} blocks, "
+                    f"{blocks / (occ[lg][0] * sms):.2f} waves; vs the engine's tile: max_abs_err {err}")
+                if err != 0:
+                    fail("K2's output depends on its tile size")
+        del x, want
+
+
 def main_path(dev):
     """Phase 3: generate_fast(20), keygen, prove, verify of BenchCircuit.
     Returns the phase seconds, a closure that proves again, the proof and
@@ -506,11 +587,11 @@ def alt_engines(dev, gen, srs):
     n = 1 << k
     ms = {}
 
-    # NTT: 2^20 Montgomery column, tiled four-step (K1/K2) vs staged (K7/K8)
+    # NTT: 2^20 Montgomery column, tiled four-step (K2) vs staged (K7/K8)
     x = rand_field(FR_LIMB, n, gen, dev)
     dom = EvaluationDomain(k)
     dom.ntt(x)  # builds the device tables
-    ms["tiled ntt (K1/K2)"], want = wall_ms(lambda: dom.ntt(x))
+    ms["tiled ntt (K2)"], want = wall_ms(lambda: dom.ntt(x))
     for radix in (2, 4):
         fd = FastDomain(k, radix=radix, device=dev)
         fd.ntt(x)
@@ -659,9 +740,9 @@ def bound_tally():
     calls = {key: [] for key in KERNELS}
     k1_launch = fo._k1_launch
 
-    def k1_tallied(f, mode, ops, limb_axis):
-        calls[k1_key(mode)].append((fo.MODE_NAMES[mode], *work(k1_key(mode), f, mode, ops, limb_axis)))
-        return k1_launch(f, mode, ops, limb_axis)
+    def k1_tallied(f, mode, ops):
+        calls[k1_key(mode)].append((fo.MODE_NAMES[mode], *work(k1_key(mode), f, mode, ops)))
+        return k1_launch(f, mode, ops)
 
     fo._k1_launch = k1_tallied
     try:
@@ -684,6 +765,48 @@ def tally_bounds(calls):
                 groups.setdefault((key, mode), []).append(ms)
     return {g: (sum(max(tb, to) for tb, to in ms), sum(tb for tb, _ in ms), sum(to for _, to in ms))
             for g, ms in groups.items()}
+
+
+NTT_RANGE = "TiledDomain.transform"  # torch.profiler range around each NTT (ops/ntt_tile.py)
+
+
+def range_split(prof, label: str):
+    """Device work inside the `label` ranges, from the profiler's raw events:
+    a kernel, copy or set is inside when it runs within one of the range's
+    device-side spans (the profiler's gpu_user_annotation, from the first to
+    the last device event of the work launched in the range; the port runs
+    on one stream, so a span holds exactly that work). Returns (spans,
+    summed span ms, {device event name: [launches, ms]} inside)."""
+    evs = prof.profiler.kineto_results.events()
+    on_card = [e for e in evs if e.device_type() != torch.autograd.DeviceType.CPU]
+    spans = sorted((e.start_ns(), e.end_ns()) for e in on_card if e.name() == label)
+    work_evs = sorted((e for e in on_card if e.name() != label), key=lambda e: e.start_ns())
+    inside, si = {}, 0
+    for e in work_evs:
+        while si < len(spans) and spans[si][1] < e.start_ns():
+            si += 1
+        if si < len(spans) and spans[si][0] <= e.start_ns() and e.end_ns() <= spans[si][1]:
+            c = inside.setdefault(e.name(), [0, 0.0])
+            c[0] += 1
+            c[1] += (e.end_ns() - e.start_ns()) / 1e6
+    return len(spans), sum(b - a for a, b in spans) / 1e6, inside
+
+
+def log_ntt_split(prof, on_dev, dev_us, tag: str) -> None:
+    """The device time and launches of the largest device events, and of the
+    port's kernels, inside the NTT's spans and outside them."""
+    n_spans, span_ms, inside = range_split(prof, NTT_RANGE)
+    ours = tuple(f"{c}(" for spec in KERNELS.values() for c in spec[2])
+    plain_in = [(n, ms) for name, (n, ms) in inside.items() if not name.startswith(ours)]
+    log(f"profile: {tag} NTT ({NTT_RANGE}): {n_spans} device spans, {span_ms:.1f} ms summed; "
+        f"device events inside {sum(ms for _n, ms in inside.values()):.1f} ms, of which plain torch "
+        f"{sum(ms for _n, ms in plain_in):.1f} ms over {sum(n for n, _ms in plain_in)} launches")
+    top = sorted(on_dev, key=dev_us, reverse=True)[:10]
+    mine = [e for e in on_dev if e.key.startswith(ours) and e not in top]
+    for e in top + mine:
+        n_in, ms_in = inside.get(e.key, (0, 0.0))
+        log(f"  ntt split {e.key[:80]}: inside {n_in} launches {ms_in:.1f} ms, "
+            f"outside {e.count - n_in} launches {dev_us(e) / 1e3 - ms_in:.1f} ms")
 
 
 def profile_prove(run, proof, out_dir: str, tag: str = "prove"):
@@ -712,8 +835,9 @@ def profile_prove(run, proof, out_dir: str, tag: str = "prove"):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     # device-side events only (kernels, copies): the host ops that launched
-    # them report the same device time again
-    on_dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    # them report the same device time again, and the NTT range's device
+    # span covers kernels listed on their own
+    on_dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA and e.key != NTT_RANGE]
     if not on_dev:
         fail("torch.profiler recorded no device events")
     busy = sum(dev_us(e) for e in on_dev) / 1e6
@@ -729,6 +853,7 @@ def profile_prove(run, proof, out_dir: str, tag: str = "prove"):
     log(f"profile: plain torch device kernels {sum(e.count for e in plain)} launches, "
         f"{sum(dev_us(e) for e in plain) / 1e3:.1f} ms; port kernels "
         f"{sum(dev_us(e) for e in on_dev if e.key.startswith(ours)) / 1e3:.1f} ms")
+    log_ntt_split(prof, on_dev, dev_us, tag)
 
     def row(label, launches, names, bnd):
         dev_ms = sum(dev_us(e) for e in on_dev if e.key.startswith(tuple(f"{c}(" for c in names))) / 1e3
@@ -1013,6 +1138,53 @@ def chunk_proof(srs):
     return secs, prove_again, proof
 
 
+def note_k2(passes: dict, *a) -> None:
+    """Record one K2 call in `passes` by its pass: shape, level, stride, the
+    table products it applies, last or not, in place or not. The butterflies
+    do not depend on the data; the pass and its tables do (kept by
+    reference: the domains hold them)."""
+    x, tw, k, stride, twmid, pre, post, n_inv, last, inplace = a
+    key = (tuple(x.shape), k, stride, *(t is not None for t in (twmid, pre, post, n_inv)), last, inplace)
+    n_calls, tables = passes.get(key, (0, (tw, twmid, pre, post, n_inv)))
+    passes[key] = (n_calls + 1, tables)
+
+
+def k2_pass_checks(passes: dict, dev, gen, where: str) -> int:
+    """Run after a phase's launch counts are read. Holds K2 against its
+    plain version at every pass that note_k2 recorded (the phase's own
+    tables, random values), CUDA-event ms of 20 launches beside the bound
+    at each, after k2_control; fails on any difference. Returns the largest
+    max_abs_err (0)."""
+    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    from scroll_prover_tpu_torch.ops import ntt_tile as nt
+
+    worst = 0
+    k2_control(dev, gen, where)
+    for key, (n_calls, (tw, twmid, pre, post, n_inv)) in sorted(passes.items()):
+        shape, k, stride, last, inplace = key[0], key[1], key[2], key[-2], key[-1]
+        x = rand_field(FR_LIMB, shape[0] * shape[1], gen, dev).reshape(shape)
+
+        def call(fn, v):
+            return fn(v, tw, k, stride, twmid, pre, post, n_inv, last, inplace)
+
+        want = call(nt._ntt_pass_plain, x)
+        err = max_abs_err(call(nt._ntt_pass_k2, x.clone()), want)
+        del want
+        worst = max(worst, err)
+        k2_ms, _ = event_ms(lambda: call(nt._ntt_pass_k2, x), 20)
+        b2 = bound(*work("K2", x, tw, k, stride, twmid, pre, post, n_inv, last, inplace))
+        tabs = [name for name, t in zip(("twmid", "pre", "post", "n_inv"), (twmid, pre, post, n_inv))
+                if t is not None]
+        log(f"K2 at {where}'s pass {shape}, k = {k}, stride {stride}, tables {'+'.join(tabs) or 'none'}"
+            f"{', last' if last else ''}{', in place' if inplace else ''} ({n_calls} calls): {k2_ms:.4f} ms "
+            f"by CUDA events, bound {b2[0]:.4f} ms ({b2[1]}), {100 * b2[0] / k2_ms:.1f}% of bound; "
+            f"vs plain version: max_abs_err {err}")
+        del x
+    if worst != 0:
+        fail(f"K2 disagrees with its plain version at {where}'s passes")
+    return worst
+
+
 @contextlib.contextmanager
 def path_inputs():
     """While phase 5 runs: the non-zero digits of every K3 call (device
@@ -1032,11 +1204,8 @@ def path_inputs():
             if rank > seen["k3_rank"]:
                 seen["k3_rank"] = rank
                 seen["k3"] = (pts.cpu(), digs.cpu(), signs.cpu(), B)
-        else:  # K2: the butterflies do not depend on the data, the shapes do
-            v, tw, k = a
-            seen["k2"].setdefault((tuple(v.shape), k), (0, tw.cpu()))
-            n_calls, tw_host = seen["k2"][(tuple(v.shape), k)]
-            seen["k2"][(tuple(v.shape), k)] = (n_calls + 1, tw_host)
+        else:
+            note_k2(seen["k2"], *a)
 
     with hooked(("K2", "K3"), hook):
         yield seen
@@ -1046,12 +1215,10 @@ def chunk_kernel_checks(seen, dev, gen) -> dict:
     """Run after phase 5's launch counts are read. Holds K3 against its plain
     version on the captured chunk commit group (the chunk's own points,
     digits and signs), K4 against its plain version on K3's output there,
-    and K2 against its plain version at every (shape, k) the chunk gave it
-    (the chunk's twiddles, random limb-major values); CUDA-event ms beside
-    the bound at each. Returns {key: max_abs_err}."""
-    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    and K2 against its plain version at every pass the chunk gave it
+    (k2_pass_checks); CUDA-event ms beside the bound at each. Returns
+    {key: max_abs_err}."""
     from scroll_prover_tpu_torch.ops import msm_tile as mt
-    from scroll_prover_tpu_torch.ops import ntt_tile as nt
 
     live = int(torch.stack(seen["k3_live"]).sum())
     log(f"chunk K3 digits: {live} of {seen['k3_digits']} non-zero "
@@ -1071,18 +1238,7 @@ def chunk_kernel_checks(seen, dev, gen) -> dict:
     log(f"K4 on that K3 output {tuple(raw.shape)}: {k4_ms:.4f} ms by CUDA events ({int(math.log2(raw.shape[1]))} "
         f"launches), bound {b4[0]:.4f} ms ({b4[1]}); vs plain version: max_abs_err {errs['K4']}")
     del raw, red
-    errs["K2"] = 0
-    for (shape, k), (n_calls, tw) in sorted(seen["k2"].items()):
-        L, rows, m = shape
-        v = rand_field(FR_LIMB, rows * m, gen, dev).T.contiguous().reshape(L, rows, m)
-        tw = tw.to(dev)
-        k2_ms, out = event_ms(lambda: nt._bntt_k2(v, tw, k), 3)
-        err = max_abs_err(out, nt._bntt_plain(v, tw, k))
-        errs["K2"] = max(errs["K2"], err)
-        b2 = bound(*work("K2", v, tw, k))
-        log(f"K2 at the chunk's shape {shape}, k = {k} ({n_calls} calls): {k2_ms:.4f} ms by CUDA events, "
-            f"bound {b2[0]:.4f} ms ({b2[1]}); vs plain version: max_abs_err {err}")
-        del v, out
+    errs["K2"] = k2_pass_checks(seen["k2"], dev, gen, "the chunk")
     for key, err in errs.items():
         if err != 0:
             fail(f"{key} disagrees with its plain version at the chunk's shapes")
@@ -1138,7 +1294,13 @@ def main() -> None:
     if not args.skip_main:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        (secs, prove_again, proof, srs), main_launches, by_mode = counted(MAIN_PATH, lambda: main_path(dev))
+        k2_main = {}
+
+        def main_run():
+            with hooked(("K2",), lambda _key, *a: note_k2(k2_main, *a)):
+                return main_path(dev)
+
+        (secs, prove_again, proof, srs), main_launches, by_mode = counted(MAIN_PATH, main_run)
         launches.update(main_launches)
         for key, modes in by_mode.items():
             for mode, v in modes.items():
@@ -1148,6 +1310,8 @@ def main() -> None:
         log(f"main path seconds: {json.dumps(secs)}")
         log(f"main path peak device memory {peak_dev / 2**30:.2f} GiB; peak host RSS {rss_kib / 2**20:.2f} GiB")
         log(f"main path launches: {json.dumps(main_launches)}; K1 by mode: {json.dumps(by_mode)}")
+        rows["K2"]["max_abs_err"] = max(rows["K2"]["max_abs_err"], k2_pass_checks(k2_main, dev, gen, "phase 3"))
+        del k2_main
 
         t0 = time.perf_counter()
         cols, alt_launches, _ = counted(ALT_PATH, lambda: alt_engines(dev, gen, srs))

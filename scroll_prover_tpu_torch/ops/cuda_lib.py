@@ -134,9 +134,12 @@ _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # C entry signatures (csrc/*.cu); every pointer and the stream is c_void_p
 _SIGS = {
     "mont_mul": {
-        "spt_field": [_INT, _VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _LL, FieldParams, _VP],
+        "spt_field": [_INT, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _LL, FieldParams, _VP],
     },
-    "ntt": {"spt_bntt": [_VP, _VP, _VP, _INT, _LL, FieldParams, _VP]},
+    "ntt": {
+        "spt_ntt_pass": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, FieldParams, _VP],
+        "spt_ntt_pass_occupancy": [_INT, _VP],
+    },
     "msm": {
         "spt_msm_accum": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _INT, CurveParams, _VP],
         "spt_msm_reduce": [_VP, _VP, _LL, _LL, CurveParams, _VP],

@@ -150,27 +150,26 @@ MUL, MUL_ADD, MUL_SUB, ADD, SUB, NEG = range(6)
 MODE_NAMES = ("mul", "mul_add", "mul_sub", "add", "sub", "neg")
 
 
-def _operand(x: torch.Tensor, limb_axis: int):
-    """(tensor, element stride, limb stride) for K1's loads. The elements
-    (every axis but the limb axis, in order) must sit at one stride from one
-    another: a contiguous (..., 16) tensor (16), a limb-major plane or a
-    transposed view of one (1), a broadcast along every element axis (0, e.g.
-    a scalar expanded over a column). Anything else is made contiguous."""
-    ax = limb_axis % x.dim()
-    ls = x.stride(ax)
-    dims = [(s, st) for i, (s, st) in enumerate(zip(x.shape, x.stride())) if i != ax and s != 1]
+def _operand(x: torch.Tensor):
+    """(tensor, element stride, limb stride) for K1's loads of a (..., 16)
+    operand. The elements (every axis but the last, in order) must sit at one
+    stride from one another: a contiguous tensor (16), a transposed view of
+    a limb-major plane (1), a broadcast along every element axis (0, e.g. a
+    scalar expanded over a column). Anything else is made contiguous."""
+    ls = x.stride(-1)
+    dims = [(s, st) for s, st in zip(x.shape[:-1], x.stride()[:-1]) if s != 1]
     if all(st == 0 for _, st in dims):
         return x, 0, ls
     es = expect = dims[-1][1]
     for size, st in reversed(dims):
         if st != expect:
             x = x.contiguous()
-            return x, (1 if ax == 0 else N_LIMBS), x.stride(ax)
+            return x, N_LIMBS, 1
         expect *= size
     return x, es, ls
 
 
-def _k1_launch(f: LimbField, mode: int, ops, limb_axis: int):
+def _k1_launch(f: LimbField, mode: int, ops):
     """One K1 launch of `mode` on the broadcast operands `ops` (1 to 3 int32
     CUDA tensors); returns a new contiguous tensor of their shape."""
     if not all(x.is_cuda for x in ops):
@@ -179,35 +178,33 @@ def _k1_launch(f: LimbField, mode: int, ops, limb_axis: int):
         raise TypeError("limb tensors must be int32")
     ops = torch.broadcast_tensors(*ops)
     shape = ops[0].shape
-    if shape[limb_axis] != N_LIMBS or (limb_axis == 0 and len(shape) != 2):
-        raise ValueError(f"bad limb layout {tuple(shape)} for limb_axis={limb_axis}")
+    if shape[-1] != N_LIMBS:
+        raise ValueError(f"bad limb layout {tuple(shape)}: (..., 16) limbs")
     n = ops[0].numel() // N_LIMBS
     out = torch.empty(shape, dtype=LIMB_DTYPE, device=ops[0].device)
     if n == 0:
         return out
     # the operands as the kernel reads them; the list keeps any contiguous
     # copy alive until the launch is queued
-    held = [_operand(x, limb_axis) for x in (*ops, *(ops[0],) * (3 - len(ops)))]  # unused: a again
+    held = [_operand(x) for x in (*ops, *(ops[0],) * (3 - len(ops)))]  # unused: a again
     args = [v for x, es, ls in held for v in (x.data_ptr(), es, ls)]
-    o_es, o_ls = (1, n) if limb_axis == 0 else (N_LIMBS, 1)
     rc = cuda_lib.lib("mont_mul").spt_field(
-        mode, out.data_ptr(), o_es, o_ls, *args, n,
+        mode, out.data_ptr(), *args, n,
         cuda_lib.field_params(f), cuda_lib.stream_ptr(out),
     )
     cuda_lib.check(rc, f"K1 {MODE_NAMES[mode]}")
     return out
 
 
-def mont_mul_k1(f: LimbField, a, b, limb_axis: int = -1, c=None, sub: bool = False):
+def mont_mul_k1(f: LimbField, a, b, c=None, sub: bool = False):
     """K1 wrapper, product modes: a*b, or a*b + c (a*b - c with sub), on the
-    card.
+    card, for (..., 16) operands that broadcast.
 
     Replaces ops/ntt_tile.py `_mul_kernel` (called through `lm_mul`) of the JAX
-    package. limb_axis=-1 takes (..., 16) row-major operands (field_ops
-    callers); limb_axis=0 takes (16, N) limb-major planes (the NTT engine).
-    Launch count: `mont_mul_k1.launches`, by mode in `mont_mul_k1.by_mode`."""
+    package. Launch count: `mont_mul_k1.launches`, by mode in
+    `mont_mul_k1.by_mode`."""
     mode = MUL if c is None else MUL_SUB if sub else MUL_ADD
-    out = _k1_launch(f, mode, (a, b) if c is None else (a, b, c), limb_axis)
+    out = _k1_launch(f, mode, (a, b) if c is None else (a, b, c))
     if out.numel():
         mont_mul_k1.launches += 1
         mont_mul_k1.by_mode[MODE_NAMES[mode]] += 1
@@ -227,7 +224,7 @@ def add_sub_k1(f: LimbField, mode: int, a, b=None):
     by mode in `add_sub_k1.by_mode`."""
     if mode not in (ADD, SUB, NEG) or (b is None) != (mode == NEG):
         raise ValueError(f"add_sub_k1 takes ADD or SUB with two operands, NEG with one (mode {mode})")
-    out = _k1_launch(f, mode, (a,) if b is None else (a, b), -1)
+    out = _k1_launch(f, mode, (a,) if b is None else (a, b))
     if out.numel():
         add_sub_k1.launches += 1
         add_sub_k1.by_mode[MODE_NAMES[mode]] += 1

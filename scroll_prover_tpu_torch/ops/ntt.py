@@ -3,8 +3,9 @@
 `EvaluationDomain(k, j)` mirrors the JAX package's (and halo2's)
 EvaluationDomain: H of size 2^k for witness polynomials, the extended coset
 zeta*H_ext of size 2^(k+j) for the quotient. Every transform runs on the
-four-step tiled engine (ops/ntt_tile.py) on the device of its input — K1 and
-K2 on the card, their plain versions on the CPU. The domain itself holds only
+four-step tiled engine (ops/ntt_tile.py) on the device of its input — one K2
+launch per level on the card, its plain version on the CPU; the coset scale
+of the extended transforms is applied inside the first or the last pass. The domain itself holds only
 host integers; its device tables are built lazily per device.
 
 Conventions: elements are (n, 16) int32 Montgomery limbs; natural order in
@@ -14,7 +15,6 @@ from __future__ import annotations
 
 from ..fields.bn254 import FR_GENERATOR, FR_ROOT_OF_UNITY, FR_TWO_ADICITY
 from ..fields.limbs import FR_LIMB, N_LIMBS, LimbField
-from . import field_ops as fo
 
 
 class EvaluationDomain:
@@ -64,10 +64,11 @@ class EvaluationDomain:
 
     # --- transforms -------------------------------------------------------
 
-    def ntt(self, x):
-        """Coefficients -> evaluations over H (natural order)."""
+    def ntt(self, x, scale=None):
+        """Coefficients -> evaluations over H (natural order); `scale`, an
+        (n, 16) table, multiplies the coefficients first."""
         assert x.shape == (self.n, N_LIMBS)
-        return self._table("tiled", x.device).ntt(x)
+        return self._table("tiled", x.device).ntt(x, scale=scale)
 
     def intt(self, y):
         """Evaluations over H -> coefficients."""
@@ -77,8 +78,7 @@ class EvaluationDomain:
     def ntt_extended(self, x):
         """Coefficients (padded to extended_n) -> evals over zeta*H_ext."""
         assert x.shape == (self.extended_n, N_LIMBS)
-        x = fo.mont_mul_big(self.field, x, self._table("coset_pow", x.device))
-        return self._table("tiled_ext", x.device).ntt(x)
+        return self._table("tiled_ext", x.device).ntt(x, scale=self._table("coset_pow", x.device))
 
     def prepare_intt_extended(self, device) -> None:
         """Build intt_extended's device tables now (they stay with the
@@ -90,14 +90,13 @@ class EvaluationDomain:
     def intt_extended(self, y):
         """Evals over zeta*H_ext -> coefficients."""
         assert y.shape == (self.extended_n, N_LIMBS)
-        x = self._table("tiled_ext", y.device).intt(y)
-        return fo.mont_mul_big(self.field, x, self._table("coset_pow_inv", y.device))
+        return self._table("tiled_ext", y.device).intt(y, scale=self._table("coset_pow_inv", y.device))
 
     # --- batched transforms: (C, n, 16) -----------------------------------
 
-    def ntt_batch(self, x):
+    def ntt_batch(self, x, scale=None):
         assert x.dim() == 3 and x.shape[1] == self.n
-        return self._table("tiled", x.device).ntt_batch(x)
+        return self._table("tiled", x.device).ntt_batch(x, scale=scale)
 
     def intt_batch(self, y):
         assert y.dim() == 3 and y.shape[1] == self.n
@@ -105,10 +104,8 @@ class EvaluationDomain:
 
     def ntt_extended_batch(self, x):
         assert x.dim() == 3 and x.shape[1] == self.extended_n
-        x = fo.mont_mul_big(self.field, x, self._table("coset_pow", x.device))
-        return self._table("tiled_ext", x.device).ntt_batch(x)
+        return self._table("tiled_ext", x.device).ntt_batch(x, scale=self._table("coset_pow", x.device))
 
     def intt_extended_batch(self, y):
         assert y.dim() == 3 and y.shape[1] == self.extended_n
-        x = self._table("tiled_ext", y.device).intt_batch(y)
-        return fo.mont_mul_big(self.field, x, self._table("coset_pow_inv", y.device))
+        return self._table("tiled_ext", y.device).intt_batch(y, scale=self._table("coset_pow_inv", y.device))

@@ -1,17 +1,23 @@
-"""Tiled four-step NTT over BN254 Fr: kernels K1 and K2 and their host plan.
+"""Tiled four-step NTT over BN254 Fr: kernel K2 and its host plan.
 
 The plan is the JAX package's (ops/ntt_tile.py): a 2^k transform splits as
-n = n1 * n2 with n2 = 2^KMAX rows; every length-2^k2 row NTT runs all its
-radix-2 DIF stages inside one kernel (K2, `_bntt`), with Pease constant
-geometry, so every stage pairs v[i] with v[i + m/2] and the output stays
-digit-reversed; each level's inter-phase twiddle multiply is the flat
-limb-major Montgomery product (K1, `lm_mul`); one gather by the composed
-permutation (`_stored_perm`) restores natural order at the end.
+n = n1 * n2 with n2 = 2^KMAX; every length-2^k2 row NTT runs all its radix-2
+DIF stages with Pease constant geometry (the JAX `_bntt`, here
+`_bntt_plain`), so every stage pairs v[i] with v[i + m/2] and the output
+stays bit-reversed; each level's inter-phase twiddle multiply uses the same
+tables (`twmid`).
 
-Layout: limb-major (16, B, m) int32 planes inside the engine, (n, 16) at the
-public functions. Unlike the TPU version, the tiled domain works at any
-k >= 1 (no Mosaic lane minimum), so the CPU tests run it at small k with the
-plain versions of K1 and K2.
+On the card a level is one K2 launch, a *pass* (`_ntt_pass`): it reads the
+level's rows where they lie (row i1 of a group of n1 * n2 elements at stride
+n1), runs their NTTs, multiplies by the twiddles and writes each output back
+into the slot it read, which is the layout the next level reads, so no
+transpose runs between levels. The first pass may scale its input by a
+per-position table, the last writes natural order (the passes leave element
+i at the k-bit reversal of i, so the kernel bit-reverses each position) and
+applies n^-1 and a per-position table. Data
+stays (C, n, 16) int32, 64 contiguous bytes per element, throughout. Unlike
+the TPU version, the tiled domain works at any k >= 1 (no Mosaic lane
+minimum), so the CPU tests run it at small k with the plain version.
 """
 from __future__ import annotations
 
@@ -24,30 +30,14 @@ from . import cuda_lib
 from . import field_ops as fo
 
 F = FR_LIMB
-KMAX = 8  # K2 handles NTTs of length <= 2^KMAX in one block
+KMAX = 8  # one pass runs NTTs of rows of length <= 2^KMAX
 
 
-# --- K1: flat limb-major Montgomery product -----------------------------------
-
-
-def lm_mul(a, b):
-    """(16, N) x (16, N) -> (16, N) limb-major Montgomery product over Fr.
-    CUDA tensors go through K1 (field_ops.mont_mul_k1), CPU tensors through
-    its plain version."""
-    if a.is_cuda or b.is_cuda:
-        return fo.mont_mul_k1(F, a, b, limb_axis=0)
-    return _lm_mul_plain(a, b)
-
-
-def _lm_mul_plain(a, b):
-    return fo._mont_mul_plain(F, a.T, b.T).T.contiguous()
-
-
-# --- K2: batched in-block NTT -------------------------------------------------
+# --- K2: one pass of the four-step plan ---------------------------------------
 
 
 def _bntt_plain(v, twpease, k: int):
-    """Plain K2: all k Pease DIF stages of a batched 2^k NTT.
+    """The row core of plain K2: all k Pease DIF stages of a batched 2^k NTT.
     v: (16, B, m) -> (16, B, m) bit-reversed; twpease: (k, 16, m/2)."""
     L, B, m = v.shape
     h = m // 2
@@ -61,40 +51,88 @@ def _bntt_plain(v, twpease, k: int):
     return x.permute(2, 0, 1).contiguous()
 
 
-def _bntt_k2(v, twpease, k: int):
-    """K2 wrapper: one CUDA block per row of m = 2^k <= 256 elements, held
-    in shared memory as 8 x 32-bit words, the k stages looped inside.
-
-    Replaces ops/ntt_tile.py `_bntt_kernel` (called through `_bntt`) of the JAX
-    package. Launch count: `_bntt_k2.launches`."""
-    L, B, m = v.shape
-    if not (v.is_cuda and twpease.is_cuda):
-        raise ValueError("_bntt_k2 takes CUDA tensors")
-    if L != N_LIMBS or m != 1 << k or not 1 <= k <= KMAX:
-        raise ValueError(f"bad K2 shape {tuple(v.shape)} for k={k}")
-    if twpease.shape != (k, N_LIMBS, m // 2) or v.dtype != LIMB_DTYPE:
-        raise ValueError("bad K2 twiddle table")
-    v = v.contiguous()
-    tw = twpease.contiguous()
-    out = torch.empty_like(v)
-    if B:
-        rc = cuda_lib.lib("ntt").spt_bntt(
-            out.data_ptr(), v.data_ptr(), tw.data_ptr(), k, B,
-            cuda_lib.field_params(F), cuda_lib.stream_ptr(out),
-        )
-        cuda_lib.check(rc, "K2 bntt")
-        _bntt_k2.launches += 1
+def _ntt_pass_plain(x, tw, k: int, stride: int, twmid, pre, post, n_inv, last: bool, inplace: bool):
+    """Plain K2, one pass: x (C, n, 16); row i1 < stride of each group of
+    stride * 2^k elements is the 2^k elements at group + i1 + i * stride.
+    Scales by `pre` (n, 16), runs the row NTTs, multiplies slot q of row i1
+    by twmid[i1, q] ((stride, 2^k, 16)) and writes slot q back to
+    group + i1 + q * stride; with `last` the element at position p goes to
+    the bit reversal of p instead, times n_inv (16,) and `post` (n, 16).
+    Returns a new tensor (`inplace` is the kernel's)."""
+    del inplace
+    C, n, L = x.shape
+    m = 1 << k
+    if pre is not None:
+        x = fo._mont_mul_plain(F, x, pre)
+    rows = x.reshape(C, n // (stride * m), m, stride, L).transpose(2, 3)  # (C, groups, i1, i, 16)
+    y = _bntt_plain(rows.reshape(-1, m, L).permute(2, 0, 1), tw, k).permute(1, 2, 0)
+    y = y.reshape(rows.shape)
+    if twmid is not None:
+        y = fo._mont_mul_plain(F, y, twmid)
+    y = y.transpose(2, 3).reshape(C, n, L)
+    if not last:
+        return y.contiguous()
+    out = y.index_select(1, torch.from_numpy(_bitrev(n.bit_length() - 1)).to(y.device))
+    if n_inv is not None:
+        out = fo._mont_mul_plain(F, out, n_inv)
+    if post is not None:
+        out = fo._mont_mul_plain(F, out, post)
     return out
 
 
-_bntt_k2.launches = 0
+def _ntt_pass_k2(x, tw, k: int, stride: int, twmid, pre, post, n_inv, last: bool, inplace: bool,
+                 lg_tile: int = 0):
+    """K2 wrapper: one pass on CUDA tensors, the arguments of
+    `_ntt_pass_plain`; with `inplace` (not `last`) the output overwrites x.
+    A block takes 2^lg_tile / 2^k rows of one column in shared memory as
+    8 x 32-bit words (csrc/ntt.cu; lg_tile 0 is the default, the only tile
+    the engine uses: 512 elements, 256 at k <= 4); a strided pass needs
+    stride >= 2^lg_tile / 2^k, as every four-step level of the plan has at
+    the default.
+
+    Replaces ops/ntt_tile.py `_bntt_kernel` (called through `_bntt`) of the
+    JAX package, with the four-step twiddle product of `_mul_kernel` (through
+    `lm_mul`) folded in. Launch count: `_ntt_pass_k2.launches`."""
+    tables = (tw, twmid, pre, post, n_inv)
+    if not (x.is_cuda and all(t is None or t.is_cuda for t in tables)):
+        raise ValueError("_ntt_pass_k2 takes CUDA tensors")
+    if x.dim() != 3 or x.shape[2] != N_LIMBS or x.dtype != LIMB_DTYPE or not x.is_contiguous():
+        raise ValueError(f"bad K2 input {tuple(x.shape)} {x.dtype}: contiguous (C, n, 16) int32 limbs")
+    C, n, _ = x.shape
+    m = 1 << k
+    lg_n, lg_s = n.bit_length() - 1, stride.bit_length() - 1
+    if (not 1 <= k <= KMAX or n != 1 << lg_n or stride != 1 << lg_s or n % (stride * m)
+            or 1 < stride < min(1 << (lg_tile or (8 if k <= 4 else 9)), n) // m or (last and stride != 1)):
+        raise ValueError(f"bad K2 pass: n={n}, k={k}, stride={stride}")
+    want = {"tw": (tw, (k, N_LIMBS, m // 2)), "twmid": (twmid, (stride, m, N_LIMBS)),
+            "pre": (pre, (n, N_LIMBS)), "post": (post, (n, N_LIMBS)), "n_inv": (n_inv, (N_LIMBS,))}
+    for name, (t, shape) in want.items():
+        if t is not None and (tuple(t.shape) != shape or t.dtype != torch.int32 or not t.is_contiguous()):
+            raise ValueError(f"bad K2 table {name}: {tuple(t.shape)} {t.dtype}, want {shape} int32")
+    if inplace and last:
+        raise ValueError("a K2 pass that permutes cannot run in place")
+    out = x if inplace else torch.empty_like(x)
+    if C:
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        rc = cuda_lib.lib("ntt").spt_ntt_pass(
+            out.data_ptr(), x.data_ptr(), *(ptr(t) for t in tables), int(last), k, lg_s, lg_n, lg_tile, C,
+            cuda_lib.field_params(F), cuda_lib.stream_ptr(out),
+        )
+        cuda_lib.check(rc, "K2 ntt_pass")
+        _ntt_pass_k2.launches += 1
+    return out
 
 
-def _bntt(v, twpease, k: int):
-    """v: (16, B, m) -> (16, B, m), NTT along the last axis, bit-reversed."""
-    if v.is_cuda:
-        return _bntt_k2(v, twpease, k)
-    return _bntt_plain(v, twpease, k)
+_ntt_pass_k2.launches = 0
+
+
+def _ntt_pass(x, tw, k: int, stride: int, twmid, pre, post, n_inv, last: bool, inplace: bool):
+    """One pass of the plan (see `_ntt_pass_plain`): K2 for CUDA tensors,
+    its plain version for CPU tensors. Arguments are positional: chip_smoke
+    hooks the wrapper with them."""
+    if x.is_cuda:
+        return _ntt_pass_k2(x, tw, k, stride, twmid, pre, post, n_inv, last, inplace)
+    return _ntt_pass_plain(x, tw, k, stride, twmid, pre, post, n_inv, last, inplace)
 
 
 # --- host-side tables and plan ----------------------------------------------
@@ -152,7 +190,9 @@ def _twpack(w: int, k: int, device) -> torch.Tensor:
 
 class TiledDomain:
     """2^k NTT/INTT via the four-step plan: ntt/intt on (n, 16) Montgomery
-    tensors in natural order, on `device`."""
+    tensors in natural order, on `device`, one pass per level (K2 on the
+    card). `scale=` takes an (n, 16) table that multiplies the input of a
+    forward transform or the output of an inverse one, element by element."""
 
     def __init__(self, k: int, device=None):
         assert k >= 1
@@ -167,12 +207,12 @@ class TiledDomain:
             inv: self._build_tables(pow(omega, p - 2, p) if inv else omega)
             for inv in (False, True)
         }
-        self._perm = torch.from_numpy(_stored_perm(k)).to(self.device)
         n_inv = pow(self.n, p - 2, p)
         self._n_inv = limbs_to_torch(ints_to_limbs([n_inv * (1 << 256) % p])[0], self.device)
 
     def _build_tables(self, w: int):
-        """Per-level (twpack, twmid) tables, leaves first (see JAX
+        """Per-level (twpack, twmid) tables, the whole transform's level
+        first, the leaf (twmid None) last (see JAX
         TiledDomain._build_tables)."""
         p = F.modulus
         levels = []
@@ -189,9 +229,10 @@ class TiledDomain:
 
     def _level_tables(self, w_row: int, k2: int, w_level: int, k1: int):
         """twpack for the length-n2 rows and twmid[n1_idx, r2] =
-        w_level^(n1_idx * bitrev(r2)), limb-major (16, n1, n2). The power
-        table is built on the device (an outer product of two sqrt-size
-        host tables) and gathered: values identical to the JAX host build."""
+        w_level^(n1_idx * bitrev(r2)), (n1, n2, 16) as the pass reads it.
+        The power table is built on the device (an outer product of two
+        sqrt-size host tables) and gathered: values identical to the JAX
+        host build."""
         from .poly import powers_outer_mont
 
         n1, n2 = 1 << k1, 1 << k2
@@ -199,67 +240,42 @@ class TiledDomain:
         pows = powers_outer_mont(F, w_level, n1 * n2, device=self.device)
         r2k = torch.from_numpy(_bitrev(k2)).to(self.device)
         e = (torch.arange(n1, device=self.device)[:, None] * r2k[None, :]) % (n1 * n2)
-        twmid = pows.index_select(0, e.reshape(-1)).T.reshape(N_LIMBS, n1, n2)
-        return twpack, twmid.contiguous()
+        return twpack, pows.index_select(0, e.reshape(-1)).reshape(n1, n2, N_LIMBS)
 
-    def _run(self, v, k: int, levels, li: int):
-        """v: (16, B, 2^k) -> digit-reversed NTT along the last axis."""
-        twpack, twmid = levels[li]
-        if k <= KMAX:
-            return _bntt(v, twpack, k)
-        L, B, _ = v.shape
-        k1, k2 = k - KMAX, KMAX
-        n1, n2 = 1 << k1, 1 << k2
-        a = v.reshape(L, B, n2, n1).transpose(2, 3).contiguous()  # (L, B, n1, n2)
-        a = _bntt(a.reshape(L, B * n1, n2), twpack, k2)
-        tw = twmid.reshape(L, 1, n1 * n2).expand(L, B, n1 * n2).reshape(L, B * n1 * n2)
-        a = lm_mul(a.reshape(L, B * n1 * n2), tw)
-        a = a.reshape(L, B, n1, n2).transpose(2, 3).contiguous()  # (L, B, r2, n1)
-        a = self._run(a.reshape(L, B * n2, n1), k1, levels, li + 1)
-        a = a.reshape(L, B, n2, n1).transpose(2, 3).contiguous()
-        return a.reshape(L, B, n1 * n2)
+    def _transform(self, x, inverse: bool, scale):
+        """x: (C, n, 16) -> (C, n, 16), one pass per level: the first reads
+        x (and applies `scale` before a forward transform), the middle ones
+        run in place, the last writes natural order (times n^-1 and `scale`
+        after an inverse one)."""
+        with torch.profiler.record_function("TiledDomain.transform"):
+            levels = self._tables[inverse]
+            y, kk = x.contiguous(), self.k
+            for li, (twpack, twmid) in enumerate(levels):
+                first, last = li == 0, li == len(levels) - 1
+                krow = kk if twmid is None else KMAX
+                y = _ntt_pass(
+                    y, twpack, krow, 1 << (kk - krow), twmid,
+                    scale if first and not inverse else None,
+                    scale if last and inverse else None,
+                    self._n_inv if last and inverse else None,
+                    last,
+                    not (first or last),
+                )
+                kk -= krow
+            return y
 
-    def _transform(self, x, inverse: bool):
-        out = self._run(_to_lm(x), self.k, self._tables[inverse], 0)
-        return _finish(out, self._perm, self._n_inv if inverse else None)
-
-    def ntt(self, x):
+    def ntt(self, x, scale=None):
         """(n, 16) Montgomery coefficients -> natural-order evaluations."""
-        return self._transform(x, False)
+        return self._transform(x[None], False, scale)[0]
 
-    def intt(self, y):
+    def intt(self, y, scale=None):
         """(n, 16) natural-order evaluations -> coefficients."""
-        return self._transform(y, True)
+        return self._transform(y[None], True, scale)[0]
 
-    def _transform_batch(self, x, inverse: bool):
-        out = self._run(_to_lm_batch(x), self.k, self._tables[inverse], 0)
-        return _finish_batch(out, self._perm, self._n_inv if inverse else None)
-
-    def ntt_batch(self, x):
+    def ntt_batch(self, x, scale=None):
         """(C, n, 16) Montgomery coefficients -> natural-order evaluations."""
-        return self._transform_batch(x, False)
+        return self._transform(x, False, scale)
 
-    def intt_batch(self, y):
+    def intt_batch(self, y, scale=None):
         """(C, n, 16) natural-order evaluations -> coefficients."""
-        return self._transform_batch(y, True)
-
-
-def _to_lm(x):
-    return x.T.contiguous()[:, None, :]  # (16, 1, n)
-
-
-def _to_lm_batch(x):
-    return x.permute(2, 0, 1).contiguous()  # (16, C, n)
-
-
-def _finish_batch(out, perm, n_inv):
-    """(16, C, n) stored order -> (C, n, 16) natural order, optionally
-    scaled by n^-1 (K1 on the card)."""
-    y = out.index_select(2, perm).permute(1, 2, 0)
-    if n_inv is not None:
-        return fo.mont_mul(F, y, n_inv)
-    return y.contiguous()
-
-
-def _finish(out, perm, n_inv):
-    return _finish_batch(out, perm, n_inv)[0]
+        return self._transform(y, True, scale)

@@ -771,17 +771,17 @@ def _quotient_cosets(
             grp = prefill[i : i + g]
             if len(grp) == 1:
                 t_, p_ = grp[0]
-                cache[t_] = dom.ntt(mm(p_, scale))
+                cache[t_] = dom.ntt(p_, scale=scale)
                 continue
-            scaled = mm(torch.stack([p_ for _, p_ in grp]), scale[None])
-            for (t_, _), e_ in zip(grp, dom.ntt_batch(scaled).unbind(0)):
+            evals = dom.ntt_batch(torch.stack([p_ for _, p_ in grp]), scale=scale)
+            for (t_, _), e_ in zip(grp, evals.unbind(0)):
                 cache[t_] = e_
-            del scaled
+            del evals
 
         def col(polyc, tag):
             if tag in cache:
                 return cache[tag]
-            return dom.ntt(mm(polyc, scale))
+            return dom.ntt(polyc, scale=scale)
 
         def q(kind, c_, rot):
             e = col(by_kind[kind][c_], (kind, c_))

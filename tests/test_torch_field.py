@@ -126,16 +126,16 @@ def test_k1_operand_strides():
     """The (element stride, limb stride) K1 is given for each operand
     layout the main path passes, and a copy only where no one stride fits."""
     x = torch.zeros((6, 5, 16), dtype=torch.int32)
-    assert tfo._operand(x, -1)[1:] == (16, 1)  # row-major
+    assert tfo._operand(x)[1:] == (16, 1)  # row-major
     plane = torch.zeros((16, 30), dtype=torch.int32)
-    assert tfo._operand(plane, 0)[1:] == (1, 30)  # limb-major
-    y = plane.reshape(16, 6, 5).permute(1, 2, 0)  # (6, 5, 16) view of a plane, as ntt_tile's output
-    t, es, ls = tfo._operand(y, -1)
+    assert tfo._operand(plane.T)[1:] == (1, 30)  # a limb-major plane seen as (N, 16)
+    y = plane.reshape(16, 6, 5).permute(1, 2, 0)  # (6, 5, 16) view of a limb-major plane
+    t, es, ls = tfo._operand(y)
     assert t is y and (es, ls) == (1, 30)
     s = torch.zeros(16, dtype=torch.int32).expand(6, 5, 16)  # broadcast scalar
-    assert tfo._operand(s, -1)[1:] == (0, 1)
+    assert tfo._operand(s)[1:] == (0, 1)
     odd = x[:, ::2]  # two element strides: copied
-    t, es, ls = tfo._operand(odd, -1)
+    t, es, ls = tfo._operand(odd)
     assert t.is_contiguous() and (es, ls) == (16, 1)
 
 

@@ -13,6 +13,7 @@ import torch
 import scroll_prover_tpu_torch
 from scroll_prover_tpu_torch.ops import msm_tile as tmt
 from scroll_prover_tpu_torch.ops import ntt_fast as tnf
+from scroll_prover_tpu_torch.ops import ntt_tile as tnt
 from scroll_prover_tpu_torch.ops.ntt_fast import FastDomain
 from scroll_prover_tpu_torch.ops.ntt_tile import TiledDomain
 from scroll_prover_tpu_torch.ops.poseidon_dev import PoseidonDev
@@ -119,16 +120,19 @@ def test_every_module_is_listed():
     assert "scroll_prover_tpu_torch.ops.cuda_lib" in names
 
 
-@pytest.mark.parametrize("kernel", ["K6", "K7", "K8"])
+@pytest.mark.parametrize("kernel", ["K2", "K6", "K7", "K8"])
 def test_new_kernel_wrappers_reject_cpu_tensors(kernel):
-    """K6-K8 wrappers launch on CUDA tensors or raise; the plain versions are
-    reached only through the dispatchers, for CPU tensors."""
+    """K2 and K6-K8 wrappers launch on CUDA tensors or raise; the plain
+    versions are reached only through the dispatchers, for CPU tensors."""
     x = torch.zeros((16, 16), dtype=torch.int32)
     tw = torch.zeros((16, 8), dtype=torch.int32)
     calls = {
         "K6": lambda: tmt._msm_buckets_lanes_k6(
             torch.zeros((16, 1, 1, 4), dtype=torch.int32), torch.zeros((16, 1, 1, 4), dtype=torch.int32),
             torch.zeros((64, 1, 1, 4), dtype=torch.int32), torch.zeros((64, 1, 1, 4), dtype=torch.int32)),
+        "K2": lambda: tnt._ntt_pass_k2(
+            torch.zeros((1, 16, 16), dtype=torch.int32), torch.zeros((4, 16, 8), dtype=torch.int32),
+            4, 1, None, None, None, None, False, False),
         "K7": lambda: tnf._butterfly_k7(x, tw, 0),
         "K8": lambda: tnf._butterfly4_k8(x, tw, 0),
     }

@@ -2,6 +2,12 @@
 
     python3 chip_smoke.py              # everything below, on cuda:0
     python3 chip_smoke.py --skip-main  # phases 1-2 only (build + kernel checks)
+    python3 chip_smoke.py --levels-only  # build, then K7/K8 at every level of
+                                         # 2^20 and FastDomain(20)'s device
+                                         # times only (also runs against a
+                                         # tree from before the per-level
+                                         # twiddle tables, so that the
+                                         # two compare in one call)
     python3 chip_smoke.py --profile DIR  # also profile two more k=20 proves:
                                          # torch.profiler (device time by kernel,
                                          # device busy share, per-launch time
@@ -21,7 +27,13 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      path's shapes, timed with CUDA events in turns (plain, kernel, kernel,
      plain); the MSMs are also checked against host Pippenger; K2's tile
      size swept (2^8 to 2^11 elements per block) at the chunk's 1- and
-     4-column passes, beside the runtime's resident blocks per SM;
+     4-column passes, beside the runtime's resident blocks per SM; K7 at
+     every level s = 0..19 and K8 at every s = 0..18 of a 2^20 plane, each
+     held and timed, with its bound, share and stride regime, and the sums
+     over one FastDomain(20).ntt's launches at radix 2 and 4; K7/K8's tile
+     size swept (2^7 to 2^10 elements) at every level, each held against
+     the default tile; K7/K8 at every level and tile size of planes 2^1 to
+     2^12, and FastDomain(1..12) against its plain path;
   3. the main path at full size: SRS.generate_fast(20), keygen of
      BenchCircuit (4096 rows) at k = 20, prove, verify (must be True), the
      proof's sha256 equal to PROOF_SHA256, with every kernel's launch count
@@ -30,7 +42,9 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      against its plain version at every pass this phase gave it (the
      extended iNTT's 2^23 passes included), with the phase's own tables;
   4. the alternative engines at k = 20 on phase 3's SRS: FastDomain radix 2
-     and radix 4 (K7/K8) against the tiled NTT (K2), the v1 MSM (K6)
+     and radix 4 (K7/K8) against the tiled NTT (K2), with the device time of
+     each and of FastDomain's parts (entry transpose, K7/K8 launches, final
+     gather) by CUDA events, the v1 MSM (K6)
      against the v2 MSM (K3/K4) over 4 columns of 2^20 scalars, msm_tile
      against msm_tile_host, PoseidonDev against host Poseidon; K6-K8's
      launch counts taken over this phase alone (each must be > 0); then K6
@@ -340,7 +354,6 @@ def check_kernels(dev, gen):
     from scroll_prover_tpu_torch.ops import field_ops as fo
     from scroll_prover_tpu_torch.ops import fixed_base as fb
     from scroll_prover_tpu_torch.ops import msm_tile as mt
-    from scroll_prover_tpu_torch.ops import ntt_fast as nf
     from scroll_prover_tpu_torch.ops import ntt_tile as nt
 
     rows = {}
@@ -369,21 +382,12 @@ def check_kernels(dev, gen):
     k2_control(dev, gen, "phase 2")
     k2_tile_sweep(dev, gen)
 
-    # K7 / K8: levels of the staged 2^20 NTT (2^19 radix-2 / 2^18 radix-4
-    # butterflies), held at the first and the last level (the two stride
-    # extremes); the row times the first.
-    k = 20
-    x = rand_field(FR_LIMB, 1 << k, gen, dev).T.contiguous()  # (16, 2^20)
-    twk = rand_field(FR_LIMB, 1 << (k - 1), gen, dev).T.contiguous()  # (16, 2^19)
-    for key, kern, plain, last in (("K7", nf._butterfly_k7, nf._butterfly_plain, k - 1),
-                                   ("K8", nf._butterfly4_k8, nf._butterfly4_plain, k - 2)):
-        k_ms, p_ms, ko, po = time_turns(lambda: kern(x, twk, 0), lambda: plain(x, twk, 0), 20)
-        err = max_abs_err(ko, po)
-        kl_ms, pl_ms, ko, po = time_turns(lambda: kern(x, twk, last), lambda: plain(x, twk, last), 20)
-        log(f"{key} level {last}: kernel {kl_ms:.4f} ms, plain {pl_ms:.2f} ms, "
-            f"bound {bound(*work(key, x, twk, last))[0]:.4f} ms, max_abs_err {max_abs_err(ko, po)}")
-        record(key, k_ms, p_ms, max(err, max_abs_err(ko, po)), x, twk, 0)
-    del x, twk, ko, po
+    # K7 / K8 at every level of the staged 2^20 NTT; the row's headline is
+    # level 0 (earlier runs timed only it and the last level)
+    for key, lv in k78_levels(dev, gen).items():
+        rows[key] = k78_row(lv)
+    k78_tile_sweep(dev, gen)
+    k78_small_planes(dev, gen)
 
     # points for the MSMs: K5 on random scalars (K5 itself is checked below)
     npts, cols = 1 << 16, 2
@@ -521,6 +525,191 @@ def k2_tile_sweep(dev, gen) -> None:
         del x, want
 
 
+K78_K = 20  # K7/K8 are held and timed at every level of a 2^20 plane
+K78_TILES = (7, 8, 9, 10)  # lg of the elements per tile in K7/K8's tile sweep
+
+
+def k78_tables(nf, tw):
+    """The K7/K8 wrappers' twiddle argument made from a (16, n/2) table:
+    its per-level tables (`level_tables`); a tree from before them (the
+    parent, run in the same call for a comparison) takes the table itself."""
+    level_tables = getattr(nf, "level_tables", None)
+    return level_tables(tw) if level_tables else tw
+
+
+def k78_levels(dev, gen):
+    """Phase 2 for K7 and K8: every level s of a 2^20 plane (K7 s = 0..19;
+    K8 s = 0..18, of which FastDomain's radix 4 launches the even s), each
+    held exactly against its plain version (fatal on any difference) and
+    timed by CUDA events in turns (20 launches), beside work()'s bound, the
+    share of it and the stride regime (the partners' distance, half for
+    K7 and q for K8, below 32 elements or not). Then the summed time
+    against the summed bound of the launches one FastDomain(20).ntt makes:
+    K7 at every s (radix 2), K8 at the even s (radix 4). Returns {key:
+    [one dict per level]}."""
+    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    from scroll_prover_tpu_torch.ops import ntt_fast as nf
+
+    k = K78_K
+    x = rand_field(FR_LIMB, 1 << k, gen, dev).T.contiguous()  # (16, 2^20)
+    tw = k78_tables(nf, rand_field(FR_LIMB, 1 << (k - 1), gen, dev).T.contiguous())
+    out = {}
+    for key, kern, plain, lv in (("K7", nf._butterfly_k7, nf._butterfly_plain, 1),
+                                 ("K8", nf._butterfly4_k8, nf._butterfly4_plain, 2)):
+        levels = []
+        for s in range(k - lv + 1):
+            k_ms, p_ms, ko, po = time_turns(lambda: kern(x, tw, s), lambda: plain(x, tw, s), 20)
+            err = max_abs_err(ko, po)
+            b = bound(*work(key, x, tw, s))
+            dist = (1 << k) >> (s + lv)
+            levels.append({"s": s, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b[0], "bound_by": b[1],
+                           "share": b[0] / k_ms, "partners": dist, "max_abs_err": err})
+            log(f"{key} level s = {s} ({'half' if lv == 1 else 'q'} = {dist}, "
+                f"{'below' if dist < 32 else 'at least'} 32): kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, "
+                f"bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / k_ms:.1f}% of bound, max_abs_err {err}")
+            if err != 0:
+                fail(f"{key} at level {s} disagrees with its plain version")
+        path = levels if lv == 1 else levels[::2]
+        t, b = sum(v["ms"] for v in path), sum(v["bound_ms"] for v in path)
+        log(f"{key}: the {len(path)} launches of one FastDomain({k}).ntt at radix {2 * lv}: "
+            f"{t:.4f} ms against a summed bound of {b:.4f} ms ({100 * b / t:.1f}%)")
+        out[key] = levels
+    return out
+
+
+def k78_row(levels) -> dict:
+    """The kernels-line row of K7 or K8 from k78_levels: level 0 as the
+    headline (as earlier runs had it), the worst level's share, the
+    FastDomain(20) sums and every level's figures."""
+    l0, worst = levels[0], min(levels, key=lambda v: v["share"])
+    path = levels if len(levels) == K78_K else levels[::2]
+    return {
+        "ms": l0["ms"], "plain_ms": l0["plain_ms"], "bound_ms": l0["bound_ms"], "bound_by": l0["bound_by"],
+        "max_abs_err": max(v["max_abs_err"] for v in levels),
+        "worst_level": worst["s"], "worst_share": worst["share"],
+        "fast_domain_ms": sum(v["ms"] for v in path), "fast_domain_bound_ms": sum(v["bound_ms"] for v in path),
+        "levels": [{key: v[key] for key in ("s", "ms", "bound_ms", "share")} for v in levels],
+    }
+
+
+def k78_tile_sweep(dev, gen) -> None:
+    """Phase 2, K7 and K8's tile size: every level of a 2^20 plane at
+    2^lg elements per tile for lg in K78_TILES, each held exactly against
+    the wrapper's default tile, with the runtime's resident blocks per SM
+    for each tile."""
+    import ctypes
+
+    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    from scroll_prover_tpu_torch.ops import cuda_lib
+    from scroll_prover_tpu_torch.ops import ntt_fast as nf
+
+    k = K78_K
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x = rand_field(FR_LIMB, 1 << k, gen, dev).T.contiguous()
+    tw = nf.level_tables(rand_field(FR_LIMB, 1 << (k - 1), gen, dev).T.contiguous())
+    for key, kern, lv in (("K7", nf._butterfly_k7, 1), ("K8", nf._butterfly4_k8, 2)):
+        for lg in K78_TILES:
+            buf = (ctypes.c_int * 4)()
+            cuda_lib.check(cuda_lib.lib("ntt_fast").spt_butterfly_occupancy(1 << lv, lg, ctypes.addressof(buf)),
+                           f"{key} occupancy")
+            log(f"{key} tile 2^{lg}: {buf[0]} resident blocks per SM ({buf[2]} threads, {buf[1]} registers, "
+                f"{buf[3] // 1024} KiB shared each) on {sms} SMs; {1 << (k - lg)} tiles")
+        for s in range(k - lv + 1):
+            want = kern(x, tw, s)
+            b = bound(*work(key, x, tw, s))[0]
+            cells = []
+            for lg in K78_TILES:
+                err = max_abs_err(kern(x, tw, s, lg_tile=lg), want)
+                if err != 0:
+                    fail(f"{key}'s output at level {s} depends on its tile size")
+                ms, _ = event_ms(lambda: kern(x, tw, s, lg_tile=lg), 20)
+                cells.append(f"2^{lg} {ms:.4f} ms {100 * b / ms:.1f}%")
+            log(f"{key} tile sweep s = {s}: " + "; ".join(cells) + " (each exact against the default tile)")
+        del want
+
+
+def k78_small_planes(dev, gen) -> int:
+    """Phase 2, K7 and K8 on small planes, 2^1 to 2^12 (the tile capped at
+    the plane, the two-element plane moved a limb at a time): every level at
+    every tile size the wrappers take, each held exactly against the plain
+    version; then FastDomain(k) at both radixes against its plain path on
+    the CPU. Returns the number of kernel launches held."""
+    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    from scroll_prover_tpu_torch.ops import ntt_fast as nf
+
+    held = 0
+    for k in range(1, 13):
+        x = rand_field(FR_LIMB, 1 << k, gen, dev).T.contiguous()
+        tw = nf.level_tables(rand_field(FR_LIMB, 1 << (k - 1), gen, dev).T.contiguous())
+        for key, kern, plain, lv in (("K7", nf._butterfly_k7, nf._butterfly_plain, 1),
+                                     ("K8", nf._butterfly4_k8, nf._butterfly4_plain, 2)):
+            for s in range(k - lv + 1):
+                want = plain(x, tw, s)
+                for lg in range(1, nf.LG_TILE_MAX + 1):
+                    try:
+                        nf._lg_tile(k, s, lv, lg)
+                    except ValueError:
+                        continue
+                    if max_abs_err(kern(x, tw, s, lg_tile=lg), want) != 0:
+                        fail(f"{key} at level {s} of 2^{k}, tile 2^{lg}, disagrees with its plain version")
+                    held += 1
+        xr = rand_field(FR_LIMB, 1 << k, gen, dev)
+        for radix in (2, 4):
+            got = nf.FastDomain(k, radix=radix, device=dev).ntt(xr)
+            if not torch.equal(got.cpu(), nf.FastDomain(k, radix=radix, device="cpu").ntt(xr.cpu())):
+                fail(f"FastDomain({k}, radix={radix}) on the card != its plain path")
+    log(f"K7/K8 on planes of 2^1 to 2^12: {held} launches (every level, every tile size) == plain; "
+        f"FastDomain(1..12) at radix 2 and 4 == its plain path")
+    return held
+
+
+def fast_domain_levels(nf, fd, y):
+    """The butterfly launches of FastDomain.ntt on its limb-major plane y,
+    as `ntt` makes them (radix 4: K8 per level pair, K7 for an odd k's last
+    level)."""
+    s = 0
+    while s < fd.k:
+        if fd.radix == 4 and s + 1 < fd.k:
+            y = nf.butterfly4_t(y, fd.tw, s)
+            s += 2
+        else:
+            y = nf.butterfly_t(y, fd.tw, s)
+            s += 1
+    return y
+
+
+def fast_domain_times(dev, gen) -> dict:
+    """FastDomain(20).ntt at radix 2 and 4 beside the tiled NTT (K2), each
+    held exactly against EvaluationDomain(20).ntt: device ms by CUDA events
+    over 10 calls back to back, of the whole call and of its three parts
+    (the entry transpose to limb-major, the K7/K8 launches, the final
+    bit-reversal gather back to (n, 16)); the parts' own composition is held
+    to the same output. Returns {name: ms}."""
+    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    from scroll_prover_tpu_torch.ops import ntt_fast as nf
+    from scroll_prover_tpu_torch.ops.ntt import EvaluationDomain
+
+    k = K78_K
+    x = rand_field(FR_LIMB, 1 << k, gen, dev)
+    dom = EvaluationDomain(k)
+    want = dom.ntt(x)  # builds the device tables
+    ms = {"tiled ntt (K2)": event_ms(lambda: dom.ntt(x), 10)[0]}
+    for radix in (2, 4):
+        fd = nf.FastDomain(k, radix=radix, device=dev)
+        if not torch.equal(fd.ntt(x), want):
+            fail(f"FastDomain({k}, radix={radix}).ntt != EvaluationDomain({k}).ntt")
+        tag = f"FastDomain radix {radix}"
+        ms[tag], _ = event_ms(lambda: fd.ntt(x), 10)
+        ms[f"{tag}: entry transpose"], y = event_ms(lambda: x.T.contiguous(), 10)
+        ms[f"{tag}: {'K7' if radix == 2 else 'K8'} launches"], z = event_ms(lambda: fast_domain_levels(nf, fd, y), 10)
+        ms[f"{tag}: final gather"], got = event_ms(lambda: z.index_select(1, fd.br).T.contiguous(), 10)
+        if not torch.equal(got, want):
+            fail(f"FastDomain({k}, radix={radix})'s parts != EvaluationDomain({k}).ntt")
+    log(f"FastDomain({k}) radix 2 and radix 4 == tiled NTT, exactly; device ms by CUDA events "
+        f"(10 calls each): {json.dumps(ms)}")
+    return ms
+
+
 def main_path(dev):
     """Phase 3: generate_fast(20), keygen, prove, verify of BenchCircuit.
     Returns the phase seconds, a closure that proves again, the proof and
@@ -579,27 +768,15 @@ def alt_engines(dev, gen, srs):
     from scroll_prover_tpu_torch.hashes.poseidon import poseidon_fr
     from scroll_prover_tpu_torch.ops import ec
     from scroll_prover_tpu_torch.ops import msm_tile as mt
-    from scroll_prover_tpu_torch.ops.ntt import EvaluationDomain
-    from scroll_prover_tpu_torch.ops.ntt_fast import FastDomain
     from scroll_prover_tpu_torch.ops.poseidon_dev import PoseidonDev
 
     k = 20
     n = 1 << k
     ms = {}
 
-    # NTT: 2^20 Montgomery column, tiled four-step (K2) vs staged (K7/K8)
-    x = rand_field(FR_LIMB, n, gen, dev)
-    dom = EvaluationDomain(k)
-    dom.ntt(x)  # builds the device tables
-    ms["tiled ntt (K2)"], want = wall_ms(lambda: dom.ntt(x))
-    for radix in (2, 4):
-        fd = FastDomain(k, radix=radix, device=dev)
-        fd.ntt(x)
-        ms[f"FastDomain radix {radix} ({'K7' if radix == 2 else 'K8'})"], got = wall_ms(lambda: fd.ntt(x))
-        if not torch.equal(got, want):
-            fail(f"FastDomain(20, radix={radix}).ntt != EvaluationDomain(20).ntt")
-    log("FastDomain(20) radix 2 and radix 4 == tiled NTT, exactly")
-    del x, want, got
+    # NTT: 2^20 Montgomery column, tiled four-step (K2) vs staged (K7/K8),
+    # device time of each and of FastDomain's parts
+    fast_domain_times(dev, gen)
 
     # MSM: 4 columns of 2^20 scalars over the SRS monomial basis, one short
     # (2^20 - 4096) and one holding zero scalars; v1 (K6) vs v2 (K3/K4)
@@ -1264,6 +1441,8 @@ def counted(keys, fn):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-main", action="store_true", help="stop after the kernel checks")
+    ap.add_argument("--levels-only", action="store_true",
+                    help="build, then only K7/K8 at every level and FastDomain(20)'s device times")
     ap.add_argument("--profile", metavar="DIR", help="profile two more k=20 proves, tables into DIR")
     args = ap.parse_args()
 
@@ -1286,6 +1465,10 @@ def main() -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
+    if args.levels_only:  # also runs on a tree from before the per-level tables, to compare in one call
+        levels = {key: k78_row(lv) for key, lv in k78_levels(dev, gen).items()}
+        print(json.dumps({"levels": levels, "fast_domain_ms": fast_domain_times(dev, gen)}))
+        return
     t0 = time.perf_counter()
     rows = check_kernels(dev, gen)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")

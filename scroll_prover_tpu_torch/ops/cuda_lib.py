@@ -147,8 +147,9 @@ _SIGS = {
     "fixed_base": {"spt_fixed_base": [_VP, _VP, _VP, _LL, CurveParams, _VP]},
     "msm4": {"spt_msm4_lanes": [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, CurveParams, _VP]},
     "ntt_fast": {
-        "spt_butterfly": [_VP, _VP, _VP, _INT, _INT, FieldParams, _VP],
-        "spt_butterfly4": [_VP, _VP, _VP, _INT, _INT, FieldParams, _VP],
+        "spt_butterfly": [_VP, _VP, _VP, _INT, _INT, _INT, FieldParams, _VP],
+        "spt_butterfly4": [_VP, _VP, _VP, _INT, _INT, _INT, FieldParams, _VP],
+        "spt_butterfly_occupancy": [_INT, _INT, _VP],
     },
 }
 

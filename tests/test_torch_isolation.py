@@ -120,12 +120,15 @@ def test_every_module_is_listed():
     assert "scroll_prover_tpu_torch.ops.cuda_lib" in names
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K6", "K7", "K8"])
+@pytest.mark.parametrize("kernel", ["K2", "K6", "K7", "K8", "K7 tile", "K8 tile", "K7 misaligned", "K8 misaligned"])
 def test_new_kernel_wrappers_reject_cpu_tensors(kernel):
     """K2 and K6-K8 wrappers launch on CUDA tensors or raise; the plain
-    versions are reached only through the dispatchers, for CPU tensors."""
+    versions are reached only through the dispatchers, for CPU tensors. So
+    do K7/K8's checks of a tile size and of a plane that does not start on a
+    16-byte boundary."""
     x = torch.zeros((16, 16), dtype=torch.int32)
-    tw = torch.zeros((16, 8), dtype=torch.int32)
+    tw = torch.zeros((16, 16), dtype=torch.int32)
+    shifted = torch.zeros((16 * 16 + 1,), dtype=torch.int32)[1:].view(16, 16)
     calls = {
         "K6": lambda: tmt._msm_buckets_lanes_k6(
             torch.zeros((16, 1, 1, 4), dtype=torch.int32), torch.zeros((16, 1, 1, 4), dtype=torch.int32),
@@ -135,6 +138,10 @@ def test_new_kernel_wrappers_reject_cpu_tensors(kernel):
             4, 1, None, None, None, None, False, False),
         "K7": lambda: tnf._butterfly_k7(x, tw, 0),
         "K8": lambda: tnf._butterfly4_k8(x, tw, 0),
+        "K7 tile": lambda: tnf._butterfly_k7(x, tw, 0, lg_tile=13),
+        "K8 tile": lambda: tnf._butterfly4_k8(x, tw, 0, lg_tile=3),
+        "K7 misaligned": lambda: tnf._butterfly_k7(shifted, tw, 0),
+        "K8 misaligned": lambda: tnf._butterfly4_k8(shifted, tw, 0),
     }
     with pytest.raises(ValueError):
         calls[kernel]()

@@ -68,7 +68,23 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      commit group (its points, digits and signs, captured during the
      prove), K4 on that K3 output, and K2 at every pass the chunk gave it
      (shape, level, stride, tables), with the chunk's own tables;
-  6. a `kernels` JSON line, the nvidia-smi line, and as the last line
+  6. the chunk's compression ladder at the package's defaults (one builder
+     lane, LOOKUP_BITS 12, SPT_LADDER_K 13, SHPLONK): BenchCircuit(4096)
+     proved at k = 20 on phase 3's SRS (seed LADDER_SEED) and verified,
+     then ChunkProver's own layer code (`_compress_layer`) for layer 1 (a
+     VerifierCircuit over the inner proof) and layer 2 (over layer 1's,
+     folding its accumulator): per layer the rows, k and columns, the
+     seconds of the gadget's counting pass, the SRS (generate_fast: K5),
+     the assignment pass, keygen, prove and verify, the accumulator's
+     pairing, peak device memory, peak host RSS and each kernel's launches;
+     a tampered layer-2 proof rejected, ChunkVerifier's outer check (vk
+     from the registry, SNARK check, pairing) True, both proofs' sha256
+     equal to LAYER1_PROOF_SHA256 and LAYER2_PROOF_SHA256, the launch
+     counts of K1-K5 over this phase alone (each must be > 0); then K2 at
+     every pass the phase gave it, K3 on layer 2's densest commit group, K4
+     on that output and K5 on slices of layer 2's SRS scalars, each against
+     its plain version;
+  7. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 It imports torch and the port (scroll_prover_tpu_torch) only.
@@ -77,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import hashlib
 import importlib
 import json
@@ -126,6 +143,15 @@ CHUNK_PATH = ("K1", "K1as", "K2", "K3", "K4")  # phase 5
 # prover's output, the super circuit or the trace generator is meant to change
 CHUNK_PROOF_SHA256 = "328f09eb83a86f60082222ff74e1d8329def977a06fab211efbf1b23d1dfc570"
 CHUNK_TXS, CHUNK_LOGS = 16, 40_000
+LADDER_PATH = ("K1", "K1as", "K2", "K3", "K4", "K5")  # phase 6
+# sha256 of the layer-1 and layer-2 proofs over phase 3's BenchCircuit at
+# k = 20 (inner seed LADDER_SEED, layer seeds LADDER_SEED + layer number,
+# SHPLONK), taken on the card: they change only when the prover's output,
+# the verifier gadget or the layer circuit is meant to change
+LADDER_SEED = b"chip-smoke-ladder"
+LAYER1_PROOF_SHA256 = "23d3a4d23ab945f8bee6d6da381f37426b4eae608a2b2bfed6b2439fa7acbee0"
+LAYER2_PROOF_SHA256 = "7316678d041fb0ed36dc03dcba4df719b877684141207733048b85f11edbb119"
+LADDER_K5_SLICE = 1 << 16  # scalars of each of layer 2's K5 calls held against the plain version
 
 
 def wrapper(key: str):
@@ -1116,33 +1142,45 @@ class _Marks(logging.Handler):
     def __init__(self):
         super().__init__(logging.INFO)
         self.marks = []
+        self.rss = []  # the host's RSS in GiB at each mark
 
     def emit(self, record):
         torch.cuda.synchronize()
         self.marks.append((record.getMessage(), time.perf_counter()))
+        self.rss.append(proc_status_gib("VmRSS"))
 
 
 @contextlib.contextmanager
-def prover_marks():
-    """Yields a _Marks attached to the prover's logger for the block; the
-    coset cache's cap is logged as the prove reports it."""
-    from scroll_prover_tpu_torch.proof_system.plonk import prover as pv
-
+def prover_marks(logger: str = "scroll_prover_tpu_torch.proof_system.plonk.prover", tag: str = "chunk prove"):
+    """Yields a _Marks attached to `logger` (the prover's, or the package's
+    to hear the ladder's layers as well) for the block; the coset cache's
+    cap is logged as the prove reports it."""
     marks = _Marks()
-    plog = logging.getLogger(pv.__name__)
+    plog = logging.getLogger(logger)
+    level = plog.level
     plog.addHandler(marks)
     plog.setLevel(logging.INFO)
     try:
         yield marks
     finally:
         plog.removeHandler(marks)
+        plog.setLevel(level)
     for msg, _t in marks.marks:
         if msg.startswith("quotient coset cache"):
-            log(f"chunk prove: {msg}")
+            log(f"{tag}: {msg}")
 
 
 def rss_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def proc_status_gib(field: str) -> float:
+    """A kB field of /proc/self/status (VmRSS: the RSS now), in GiB."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) / 2**20
+    raise KeyError(field)
 
 
 def host_profile(run, out_path: str, top: int = 20):
@@ -1363,12 +1401,13 @@ def k2_pass_checks(passes: dict, dev, gen, where: str) -> int:
 
 
 @contextlib.contextmanager
-def path_inputs():
-    """While phase 5 runs: the non-zero digits of every K3 call (device
-    counts, summed after the phase), host copies of the arguments of the K3
-    call with the most non-zero digits among the widest (one of the chunk's
-    commit groups: this waits for the card at each K3 call), and the shape,
-    k and twiddles of each distinct K2 call. Yields the dict it fills."""
+def path_inputs(keys=("K2", "K3")):
+    """While phase 5 (or a layer of phase 6) runs: the non-zero digits of
+    every K3 call (device counts, summed after the phase), host copies of
+    the arguments of the K3 call with the most non-zero digits among the
+    widest (one of the commit groups: this waits for the card at each K3
+    call), and the shape, k and twiddles of each distinct K2 call, for the
+    kernels of `keys`. Yields the dict it fills."""
     seen = {"k3_live": [], "k3_digits": 0, "k3": None, "k3_rank": (-1, -1), "k2": {}}
 
     def hook(key, *a):
@@ -1384,41 +1423,48 @@ def path_inputs():
         else:
             note_k2(seen["k2"], *a)
 
-    with hooked(("K2", "K3"), hook):
+    with hooked(keys, hook):
         yield seen
 
 
-def chunk_kernel_checks(seen, dev, gen) -> dict:
-    """Run after phase 5's launch counts are read. Holds K3 against its plain
-    version on the captured chunk commit group (the chunk's own points,
+def chunk_kernel_checks(seen, dev, gen, where: str = "the chunk") -> dict:
+    """Run after phase 5's (or 6's) launch counts are read. Holds K3 against
+    its plain version on the captured commit group (the path's own points,
     digits and signs), K4 against its plain version on K3's output there,
-    and K2 against its plain version at every pass the chunk gave it
+    and K2 against its plain version at every pass the path gave it
     (k2_pass_checks); CUDA-event ms beside the bound at each. Returns
     {key: max_abs_err}."""
     from scroll_prover_tpu_torch.ops import msm_tile as mt
 
     live = int(torch.stack(seen["k3_live"]).sum())
-    log(f"chunk K3 digits: {live} of {seen['k3_digits']} non-zero "
+    log(f"{where}: K3 digits: {live} of {seen['k3_digits']} non-zero "
         f"({100 * live / seen['k3_digits']:.3f}%) over {len(seen['k3_live'])} calls")
     pts, digs, signs, B = (t.to(dev) if torch.is_tensor(t) else t for t in seen["k3"])
     k3_ms, raw = event_ms(lambda: mt._accum_k3(pts, digs, signs, B), 2)
     b3 = bound(*work("K3", pts, digs, signs, B))
-    p_ms, plain = wall_ms(lambda: mt._accum_v2_plain(pts, digs, signs, B))
-    errs = {"K3": max_abs_err(raw, plain)}
-    log(f"K3 at the chunk's shape {tuple(digs.shape)} ({seen['k3_rank'][1]} non-zero digits): {k3_ms:.3f} ms "
-        f"by CUDA events, bound {b3[0]:.3f} ms ({b3[1]}); vs plain version ({p_ms / 1e3:.1f} s wall): "
-        f"max_abs_err {errs['K3']}")
-    del pts, digs, signs, plain
+    # the plain version walks each column-window alone: run it over slices
+    # of rows (2^28 digits each) so that its int64 copies fit beside the rest
+    step = max(1, (1 << 28) // digs.shape[1])
+    p_ms, errs = 0.0, {"K3": 0}
+    for a in range(0, digs.shape[0], step):
+        ms, plain = wall_ms(lambda: mt._accum_v2_plain(pts, digs[a:a + step], signs[a:a + step], B))
+        p_ms += ms
+        errs["K3"] = max(errs["K3"], max_abs_err(raw[a:a + step], plain))
+        del plain
+    log(f"K3 at {where}'s shape {tuple(digs.shape)} ({seen['k3_rank'][1]} non-zero digits): {k3_ms:.3f} ms "
+        f"by CUDA events, bound {b3[0]:.3f} ms ({b3[1]}); vs plain version ({p_ms / 1e3:.1f} s wall, "
+        f"{step} rows a call): max_abs_err {errs['K3']}")
+    del pts, digs, signs
     k4_ms, red = event_ms(lambda: mt._lane_reduce_k4(raw), 2)
     b4 = bound(*work("K4", raw))
     errs["K4"] = max_abs_err(red, mt._lane_reduce_plain(raw))
     log(f"K4 on that K3 output {tuple(raw.shape)}: {k4_ms:.4f} ms by CUDA events ({int(math.log2(raw.shape[1]))} "
         f"launches), bound {b4[0]:.4f} ms ({b4[1]}); vs plain version: max_abs_err {errs['K4']}")
     del raw, red
-    errs["K2"] = k2_pass_checks(seen["k2"], dev, gen, "the chunk")
+    errs["K2"] = k2_pass_checks(seen["k2"], dev, gen, where)
     for key, err in errs.items():
         if err != 0:
-            fail(f"{key} disagrees with its plain version at the chunk's shapes")
+            fail(f"{key} disagrees with its plain version at {where}'s shapes")
     return errs
 
 
@@ -1436,6 +1482,175 @@ def counted(keys, fn):
     if missing:
         fail(f"the path never launched {missing}")
     return out, launches, by_mode
+
+
+def ladder_layer(prover, prev, prev_vk, layer: int, mo: str):
+    """One layer of phase 6 through the facade's own layer code
+    (ChunkProver._compress_layer: min_k's counting pass, the SRS, keygen
+    with the assignment pass, the host accumulator, the prove), then
+    verify and the accumulator's pairing. Returns (payload, vk, stats)."""
+    from scroll_prover_tpu_torch.proof_system.plonk.verifier import acc_from_limbs, check_accumulator, verify
+    from scroll_prover_tpu_torch.prover.verifier_circuit import ACC_CELLS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = {key: wrapper(key).launches for key in LADDER_PATH}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prover_marks("scroll_prover_tpu_torch", f"layer {layer} prove") as marks:
+        payload, vk, circ = prover._compress_layer(prev, prev_vk, layer, "ladder", mo,
+                                                   seed=LADDER_SEED + bytes([layer]))
+    at = {}
+    gadget = []
+    for msg, t in marks.marks:
+        if msg.startswith("verifier-gadget build"):
+            gadget.append(t)
+        for key in ("verifier circuit:", "srs ready", "keygen done", "proved"):
+            if key in msg and msg.startswith("chunk ladder: layer"):
+                at[key] = t
+    if len(gadget) != 4:
+        fail(f"layer {layer} ran the verifier gadget {len(gadget) // 2} times, not twice (count, assign)")
+    secs = {
+        "count": gadget[1] - gadget[0],
+        "srs": at["srs ready"] - at["verifier circuit:"],
+        "assign": gadget[3] - gadget[2],
+        "keygen": at["keygen done"] - at["srs ready"] - (gadget[3] - gadget[2]),
+        "prove": at["proved"] - at["keygen done"],
+    }
+    prev_t = at["keygen done"]
+    for msg, t in marks.marks:
+        if t > at["keygen done"] and msg.startswith("prove["):
+            log(f"layer {layer} prove: {msg[len('prove['):msg.index(']')]}: {t - prev_t:.2f} s")
+            prev_t = t
+    srs = prover.params_map[vk.k]
+    inst = [payload.instances]
+    t1 = time.perf_counter()
+    ok = verify(srs, vk, inst, payload.proof, multiopen=mo)
+    secs["verify"] = time.perf_counter() - t1
+    if not ok:
+        fail(f"the layer-{layer} proof did not verify")
+    t1 = time.perf_counter()
+    if not check_accumulator(srs, *acc_from_limbs(payload.instances[:ACC_CELLS])):
+        fail(f"the layer-{layer} accumulator fails its pairing")
+    secs["accumulator"] = time.perf_counter() - t1
+    secs["layer"] = time.perf_counter() - t0
+    cs = vk.cs
+    stats = {
+        "rows": circ._rows, "k": vk.k, "advice": cs.num_advice, "fixed": cs.num_fixed, "lookups": len(cs.lookups),
+        "gates": len(cs.gates), "permutation": len(cs.perm_columns), "extended_k": vk.domain.extended_k,
+        "instances": len(payload.instances), "proof_bytes": len(payload.proof), "seconds": secs,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        # the largest RSS at the layer's progress marks (a process cannot
+        # reset its peak everywhere), beside the process's peak so far
+        "peak_rss_at_marks_gib": max(marks.rss),
+        "process_peak_rss_gib": rss_gib(),
+        "launches": {key: wrapper(key).launches - before[key] for key in LADDER_PATH},
+    }
+    log(f"layer {layer}: {json.dumps(stats)}")
+    return payload, vk, stats
+
+
+def ladder(srs, dev, gen, rows) -> dict:
+    """Phase 6 (see the module docstring): the inner BenchCircuit proof at
+    k = 20, then layers 1 and 2 through ChunkProver, verified, pinned, and
+    the ChunkVerifier's outer check; then, after the launch counts are
+    read, K2 at every pass of the phase, K3 and K4 on layer 2's densest
+    commit group and K5 on slices of layer 2's SRS scalars, each against
+    its plain version. Returns the per-layer stats."""
+    from scroll_prover_tpu_torch.integration.bench_circuit import BenchCircuit
+    from scroll_prover_tpu_torch.ops import fixed_base as fb
+    from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen
+    from scroll_prover_tpu_torch.proof_system.plonk.prover import prove
+    from scroll_prover_tpu_torch.proof_system.plonk.verifier import verify
+    from scroll_prover_tpu_torch.prover import ChunkProver, ChunkVerifier
+    from scroll_prover_tpu_torch.prover.proofs import ProofPayload
+    from scroll_prover_tpu_torch.prover.protocol import protocol_from_vk
+    from scroll_prover_tpu_torch.prover.provers import _ladder_multiopen
+
+    mo = _ladder_multiopen()
+    k, instance = 20, [[7]]
+    passes = {}
+    k5_slices = []
+    seen = None
+    out = {}
+
+    def run():
+        nonlocal seen
+        circ = BenchCircuit(4096)
+        t0 = time.perf_counter()
+        pk, vk = keygen(srs, k, circ, instance)
+        proof = prove(srs, pk, circ, instance, seed=LADDER_SEED, multiopen=mo)
+        del pk
+        if not verify(srs, vk, instance, proof, multiopen=mo):
+            fail("the ladder's inner k=20 proof did not verify")
+        torch.cuda.synchronize()
+        out["inner_seconds"] = time.perf_counter() - t0
+        log(f"ladder inner proof (BenchCircuit(4096), k = {k}, {mo}): keygen, prove and verify "
+            f"{out['inner_seconds']:.2f} s, {len(proof)} bytes")
+        prev = ProofPayload(proof=proof, instances=instance[0], protocol=protocol_from_vk(vk, 1, multiopen=mo),
+                            vk_id=hex(vk.transcript_repr()))
+        prover = ChunkProver(params_map={k: srs}, device=dev)
+        p1, vk1, out["layer1"] = ladder_layer(prover, prev, vk, 1, mo)
+
+        def k5_note(_key, table, digs):
+            k5_slices.append((table, digs[:, :LADDER_K5_SLICE].clone()))
+
+        with path_inputs(("K3",)) as seen, hooked(("K5",), k5_note):
+            p2, vk2, out["layer2"] = ladder_layer(prover, p1, vk1, 2, mo)
+        bad = bytearray(p2.proof)
+        bad[100] ^= 1
+        try:
+            rejected = not verify(prover.params_map[vk2.k], vk2, [p2.instances], bytes(bad), multiopen=mo)
+        except (AssertionError, ValueError):
+            rejected = True
+        if not rejected:
+            fail("a tampered layer-2 proof verified")
+        t0 = time.perf_counter()
+        if not ChunkVerifier(prover.params_map, device=dev)._verify_outer(p2):
+            fail("ChunkVerifier rejected the layer-2 proof (registry vk, SNARK check, pairing)")
+        out["outer_check_seconds"] = time.perf_counter() - t0
+        log(f"layer 2: tampered proof rejected; ChunkVerifier outer check True in {out['outer_check_seconds']:.2f} s")
+        return p1, p2
+
+    def run_hooked():
+        with hooked(("K2",), lambda _key, *a: note_k2(passes, *a)):
+            return run()
+
+    t0 = time.perf_counter()
+    (p1, p2), launches, modes = counted(LADDER_PATH, run_hooked)
+    log(f"ladder: {time.perf_counter() - t0:.1f} s; launches: {json.dumps(launches)}; K1 by mode: {json.dumps(modes)}")
+    for key, v in launches.items():
+        rows[key]["ladder_launches"] = v
+    for key, by_mode in modes.items():
+        for mode, v in by_mode.items():
+            rows[key]["modes"][mode]["ladder_launches"] = v
+    for layer, (proof, pinned) in enumerate(((p1.proof, LAYER1_PROOF_SHA256), (p2.proof, LAYER2_PROOF_SHA256)), 1):
+        digest = hashlib.sha256(proof).hexdigest()
+        log(f"layer {layer} proof: {len(proof)} bytes, sha256 {digest} (pinned {pinned})")
+        if digest != pinned:
+            fail(f"the layer-{layer} proof's bytes differ from the pinned proof")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"ladder checks: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of device memory still held")
+    t0 = time.perf_counter()
+    seen["k2"] = passes
+    for key, err in chunk_kernel_checks(seen, dev, gen, "the ladder").items():
+        rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+    worst = 0
+    for table, digs in k5_slices:
+        k5_ms, got = event_ms(lambda: torch.stack(list(fb._accumulate_k5(table, digs))), 3)
+        err = max_abs_err(got, torch.stack(list(fb._accumulate_plain(table, digs))))
+        b5 = bound(*work("K5", table, digs))
+        log(f"K5 on a slice of layer 2's SRS scalars {tuple(digs.shape)}: {k5_ms:.4f} ms by CUDA events, "
+            f"bound {b5[0]:.4f} ms ({b5[1]}); vs plain version: max_abs_err {err}")
+        worst = max(worst, err)
+    if not k5_slices or worst != 0:
+        fail("K5 disagrees with its plain version on layer 2's SRS scalars (or never ran there)")
+    rows["K5"]["max_abs_err"] = max(rows["K5"]["max_abs_err"], worst)
+    log(f"ladder checks: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> None:
@@ -1542,7 +1757,16 @@ def main() -> None:
                 target = rows[key]["modes"][mode] if mode else rows[key]
                 target.update({"chunk_device_ms": st["device_ms"],
                                "chunk_bound_ms_per_launch": st["bound_ms_per_launch"]})
-        del chunk_again
+        del chunk_again, chunk
+
+        # phase 6 at the package's defaults too, on a card freed of phase 5
+        for knob in [v for v in os.environ if v.startswith("SPT_")]:
+            log(f"ladder: ignoring {knob}={os.environ.pop(knob)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"ladder: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of device memory held from earlier phases")
+        ladder(srs, dev, gen, rows)
 
     kernels = []
     for key, (_mod, _fn, _cnames, src, rep) in KERNELS.items():

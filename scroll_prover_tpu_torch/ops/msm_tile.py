@@ -145,13 +145,18 @@ def _accum_v2_plain(pts, digs, signs, B: int):
         j = at - torch.cummax(torch.where(first, at, 0), 0).values  # entry index in its run
         rows = ((g // NB) * SF + j % SF) * NB + g % NB  # (cw, slot, bucket)
         step = j // SF
+        # entries grouped by step once: a step is then one contiguous slice
+        # (no row occurs twice in a step, so the order inside one is free)
+        by_step = torch.argsort(step, stable=True)
+        rows, i, neg = rows[by_step], i[by_step], neg[by_step]
         q = words_to_limbs(pts)
-        for k in range(int(step.max()) + 1):
-            sel = step == k
-            r, ii = rows[sel], i[sel]
-            qy = fo.select(neg[sel], fo.neg_mod(FQ, q[ii, 1]), q[ii, 1])
+        a = 0
+        for b in torch.bincount(step).cumsum(0).tolist():
+            r, ii = rows[a:b], i[a:b]
+            qy = fo.select(neg[a:b], fo.neg_mod(FQ, q[ii, 1]), q[ii, 1])
             nxt = ec.madd(ec.PointP(X[r], Y[r], Z[r]), q[ii, 0], qy)
             X[r], Y[r], Z[r] = nxt.x, nxt.y, nxt.z
+            a = b
     t = ec.PointP(*(c.reshape(CW, SF, NB, N_LIMBS) for c in (X, Y, Z)))
     while t.x.shape[1] > S:  # fold: slot u < h adds slot u + h, h = 2S, S
         h = t.x.shape[1] // 2

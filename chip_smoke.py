@@ -52,11 +52,11 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      windows x 1024 point tiles) and the v1 batch's time breakdown, and K3
      against its plain version at the shape the v2 MSM gave it (4 columns x
      43 windows x 2^20 points);
-  5. the chunk's inner proof at k = 20: a synthetic block trace (16
+  5. the chunk's inner proof at k = 19: a synthetic block trace (8
      transactions x 40,000 struct logs) through BlockTrace.from_json and
      chunk_trace_to_witness_block, ScrollSuperCircuit at the package's
-     default caps with min_k() == 20, keygen on phase 3's SRS, prove
-     (seed b"chip-smoke-chunk", SHPLONK; the quotient streams its 16
+     default caps with min_k() == 19, keygen on SRS.generate_fast(19),
+     prove (seed b"chip-smoke-chunk", SHPLONK; the quotient streams its 16
      cosets: the lookups' degree 9 sets j = 4), verify (must be True), a
      tampered proof rejected, the proof's sha256 equal to
      CHUNK_PROOF_SHA256; seconds of each step, of the prove's
@@ -70,21 +70,46 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      (shape, level, stride, tables), with the chunk's own tables;
   6. the chunk's compression ladder at the package's defaults (one builder
      lane, LOOKUP_BITS 12, SPT_LADDER_K 13, SHPLONK): BenchCircuit(4096)
-     proved at k = 20 on phase 3's SRS (seed LADDER_SEED) and verified,
+     proved at k = 20 on phase 3's SRS (seed LADDER_SEED) over the 9-cell
+     chunk instance of phase 5's ChunkInfo (chain id 7: BenchCircuit copies
+     cell 0 into a column whose lookup table is 0..8191) and verified,
      then ChunkProver's own layer code (`_compress_layer`) for layer 1 (a
      VerifierCircuit over the inner proof) and layer 2 (over layer 1's,
      folding its accumulator): per layer the rows, k and columns, the
-     seconds of the gadget's counting pass, the SRS (generate_fast: K5),
+     seconds of the gadget's recording pass, the SRS (generate_fast: K5),
      the assignment pass, keygen, prove and verify, the accumulator's
      pairing, peak device memory, peak host RSS and each kernel's launches;
-     a tampered layer-2 proof rejected, ChunkVerifier's outer check (vk
-     from the registry, SNARK check, pairing) True, both proofs' sha256
-     equal to LAYER1_PROOF_SHA256 and LAYER2_PROOF_SHA256, the launch
-     counts of K1-K5 over this phase alone (each must be > 0); then K2 at
-     every pass the phase gave it, K3 on layer 2's densest commit group, K4
-     on that output and K5 on slices of layer 2's SRS scalars, each against
-     its plain version;
-  7. a `kernels` JSON line, the nvidia-smi line, and as the last line
+     a tampered layer-2 proof rejected, the three proofs wrapped into a
+     ChunkProofV2 that ChunkVerifier.verify_chunk_proof accepts (vk from
+     the registry, SNARK check, pairing, chunk binding), both layers'
+     sha256 equal to LAYER1_PROOF_SHA256 and LAYER2_PROOF_SHA256, the
+     launch counts of K1-K5 over this phase alone (each must be > 0); then
+     K2 at every pass the phase gave it that phases 3 and 5 did not hold,
+     against its plain version;
+  7. the batch at the package's defaults (blob width 4096, one builder
+     lane, SHPLONK, the real BLS12-381 blob commitment), on a card freed
+     of phase 6's prover: the blob of phase 6's chunk (get_blob_from_chunks,
+     zstd or the raw envelope as the machine allows), the header
+     (BatchHeader.construct_from_chunks), then BatchProver's own code
+     (`_gen_batch_proof`, seed BATCH_SEED): layer 3, an AggregationCircuit
+     that verifies the chunk's layer-2 proof in constraints, links and
+     exposes its statement cells and evaluates the blob at the header's
+     (z, y) in constraints, and layer 4, a VerifierCircuit over layer 3
+     that folds its accumulator; per layer the rows, k and columns, the
+     seconds of the recording pass and its replay, the SRS, keygen, prove and verify,
+     the accumulator's pairing, peak device memory, host RSS at its marks
+     and the launches of K1-K5; BatchVerifier.verify_batch_proof True, and
+     False with one blob byte flipped and with one byte of layer 4's proof
+     flipped; the exposed data-hash cells equal to the chunk's data hash;
+     both proofs' sha256 equal to BATCH_LAYER3_PROOF_SHA256 and
+     BATCH_LAYER4_PROOF_SHA256 for the blob's envelope byte; the launch counts over this phase alone
+     (K1-K5 each > 0); then K2 at every pass that no earlier phase held,
+     K3 on a slice of layer 3's densest commit group (2^23 points), K4 on
+     that output and K5 on a slice of layer 3's SRS scalars, each against
+     its plain version, and the per-launch time of K2, K3 and K4 on layer
+     3's keygen and prove (CUDA events around each launch) beside its
+     bound;
+  8. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 It imports torch and the port (scroll_prover_tpu_torch) only.
@@ -93,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import importlib
@@ -138,20 +164,39 @@ ALT_PATH = ("K6", "K7", "K8")  # phase 4
 # leave every byte of the proof as it was
 PROOF_SHA256 = "1b562859a5b3ce535a9aadd41bb10f518633e8946def3f6714031413850433d3"
 CHUNK_PATH = ("K1", "K1as", "K2", "K3", "K4")  # phase 5
-# sha256 of the k=20 chunk proof (the synthetic trace below, seed
+# sha256 of the k=19 chunk proof (the synthetic trace below, seed
 # b"chip-smoke-chunk", SHPLONK), taken on the card: it changes only when the
 # prover's output, the super circuit or the trace generator is meant to change
-CHUNK_PROOF_SHA256 = "328f09eb83a86f60082222ff74e1d8329def977a06fab211efbf1b23d1dfc570"
-CHUNK_TXS, CHUNK_LOGS = 16, 40_000
+CHUNK_PROOF_SHA256 = "39e2c04430563d3631f641f66200f6923b9ea75d849b2a811969349a518dcac9"
+CHUNK_TXS, CHUNK_LOGS, CHUNK_K = 8, 40_000, 19
 LADDER_PATH = ("K1", "K1as", "K2", "K3", "K4", "K5")  # phase 6
 # sha256 of the layer-1 and layer-2 proofs over phase 3's BenchCircuit at
-# k = 20 (inner seed LADDER_SEED, layer seeds LADDER_SEED + layer number,
-# SHPLONK), taken on the card: they change only when the prover's output,
-# the verifier gadget or the layer circuit is meant to change
+# k = 20 on phase 5's chunk instance (inner seed LADDER_SEED, layer seeds
+# LADDER_SEED + layer number, SHPLONK), taken on the card: they change only
+# when the prover's output, the verifier gadget, the layer circuit or phase
+# 5's chunk is meant to change
 LADDER_SEED = b"chip-smoke-ladder"
-LAYER1_PROOF_SHA256 = "23d3a4d23ab945f8bee6d6da381f37426b4eae608a2b2bfed6b2439fa7acbee0"
-LAYER2_PROOF_SHA256 = "7316678d041fb0ed36dc03dcba4df719b877684141207733048b85f11edbb119"
-LADDER_K5_SLICE = 1 << 16  # scalars of each of layer 2's K5 calls held against the plain version
+LADDER_CHAIN_ID = 7  # BenchCircuit copies instance cell 0 into a column whose lookup table is 0..8191
+LAYER1_PROOF_SHA256 = "9c855d50bc1fa79cf42457a19935cf0a0c1d249f2a8fa53e8b8dcd934d387b6f"
+LAYER2_PROOF_SHA256 = "7bbecf617f32ba33ccb62e581418774542e596a9003016cb6a0f476793191283"
+BATCH_PATH = ("K1", "K1as", "K2", "K3", "K4", "K5")  # phase 7
+# sha256 of the batch's layer-3 and layer-4 proofs over phase 6's chunk
+# (seeds BATCH_SEED + layer number, SHPLONK), by the blob's envelope byte:
+# the blob is zstd-compressed (0x01) where the zstd codec builds and raw
+# (0x00) where it does not, and the proofs' bytes follow the blob. They
+# change only when the prover's output, a gadget, a layer circuit or the
+# chunk below is meant to change
+BATCH_SEED = b"chip-smoke-batch"
+BATCH_LAYER3_PROOF_SHA256 = {
+    0x00: "445b8db04e490da74403618cc9703902994e41ed4bccf390297e7c475495ba93",
+    0x01: "5b3cd846732e9ea0c5180fd4dc1800ad79658724a63ea60e1bcfb499289e882f",
+}
+BATCH_LAYER4_PROOF_SHA256 = {
+    0x00: "ec2d0ea60fc45da9e7e18e3cb438c17830bf748eaaeb6d7f8d4e10201a36b62a",
+    0x01: "95122828632bfed0615fb98dcf1597f93db75c6f0679ab3b88f91c83f362056f",
+}
+BATCH_K3_ROWS = 8  # column-windows of layer 3's densest commit group held against the plain K3
+BATCH_K5_SLICE = 1 << 16  # scalars of each of layer 3's K5 calls held against the plain version
 
 
 def wrapper(key: str):
@@ -169,13 +214,30 @@ def reset_counts(fn) -> None:
         fn.by_mode = dict.fromkeys(fn.by_mode, 0)
 
 
+_T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def clock(what: str) -> None:
+    """The script's own seconds so far, at a phase's end."""
+    log(f"clock: {what} at {time.perf_counter() - _T_START:.1f} s")
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
-    sys.exit(1)
+    leave(1)
+
+
+def leave(code: int) -> None:
+    """Exit without the interpreter's teardown: after phases 6 and 7 the
+    host holds tens of GiB of Python objects, and tearing them down took
+    2-4 minutes on the card's host."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 def smi_line() -> str:
@@ -273,7 +335,7 @@ def work(key: str, *args):
 
         pts, digs, signs, B = args
         CW, n = digs.shape
-        live = (digs != 0).sum()
+        live = torch.count_nonzero(digs)
         out_bytes = CW * _slots(n) * (B - 1) * 96
         return 4 * (pts.numel() + digs.numel() + signs.numel()) + out_bytes, live * 11 * MULS_PER_MONT
     if key == "K4":
@@ -282,11 +344,11 @@ def work(key: str, *args):
         return 4 * tbl.numel() + CW * NB * 96, CW * (S - 1) * NB * 12 * MULS_PER_MONT
     if key == "K5":
         table, digs = args
-        nz = (digs != 0).sum()
+        nz = torch.count_nonzero(digs)
         return 4 * (table.numel() + digs.numel()) + 3 * 64 * digs.shape[1], nz * 11 * MULS_PER_MONT
     if key == "K6":
         px, py, digs, signs = args
-        live = (digs != 0).sum()
+        live = torch.count_nonzero(digs)
         out_bytes = digs.shape[0] * 9 * 3 * 64 * px[0, 0].numel()
         return 4 * (px.numel() + py.numel() + digs.numel() + signs.numel()) + out_bytes, \
             live * 11 * MULS_PER_MONT
@@ -904,12 +966,13 @@ def k3_full_check(base, cols) -> int:
 
 
 @contextlib.contextmanager
-def hooked(keys, hook):
+def hooked(keys, hook, after=None):
     """Wrap the wrappers of `keys` (not K1/K1as) so that each call runs
-    hook(key, *args) before the kernel. A wrapper counts its launches on the
-    function its module's name points to, which while wrapped is the
-    wrapping function; on exit each count moves back to the wrapper itself,
-    so `wrapper(key).launches` counts every launch."""
+    hook(key, *args) before the kernel, and after(key) after it when given.
+    A wrapper counts its launches on the function its module's name points
+    to, which while wrapped is the wrapping function; on exit each count
+    moves back to the wrapper itself, so `wrapper(key).launches` counts
+    every launch."""
     saved = []
     for key in keys:
         mod_name, name = KERNELS[key][:2]
@@ -918,7 +981,10 @@ def hooked(keys, hook):
 
         def wrapped(*a, _orig=orig, _key=key):
             hook(_key, *a)
-            return _orig(*a)
+            out = _orig(*a)
+            if after is not None:
+                after(_key)
+            return out
 
         wrapped.launches = 0
         setattr(mod, name, wrapped)
@@ -1151,11 +1217,12 @@ class _Marks(logging.Handler):
 
 
 @contextlib.contextmanager
-def prover_marks(logger: str = "scroll_prover_tpu_torch.proof_system.plonk.prover", tag: str = "chunk prove"):
-    """Yields a _Marks attached to `logger` (the prover's, or the package's
-    to hear the ladder's layers as well) for the block; the coset cache's
-    cap is logged as the prove reports it."""
-    marks = _Marks()
+def prover_marks(logger: str = "scroll_prover_tpu_torch.proof_system.plonk.prover", tag: str = "chunk prove",
+                 marks=None):
+    """Yields a _Marks (or `marks`) attached to `logger` (the prover's, or
+    the package's to hear the ladder's layers as well) for the block; the
+    coset cache's cap is logged as the prove reports it."""
+    marks = marks or _Marks()
     plog = logging.getLogger(logger)
     level = plog.level
     plog.addHandler(marks)
@@ -1259,17 +1326,19 @@ def nonzero_by_family(cs, tables) -> dict:
     return out
 
 
-def chunk_proof(srs):
-    """Phase 5: the chunk's inner proof at k = 20 (see the module
-    docstring). Returns the phase seconds, a closure that proves again and
-    the proof."""
+def chunk_proof(dev):
+    """Phase 5: the chunk's inner proof at k = CHUNK_K (see the module
+    docstring). Returns the phase seconds, a closure that proves again, the
+    proof and the chunk's ChunkInfo."""
     from scroll_prover_tpu_torch.l2types import BlockTrace
+    from scroll_prover_tpu_torch.proof_system.kzg import SRS
     from scroll_prover_tpu_torch.proof_system.plonk import prover as pv
     from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen
     from scroll_prover_tpu_torch.proof_system.plonk.mock import _pad_instance
     from scroll_prover_tpu_torch.proof_system.plonk.verifier import verify
+    from scroll_prover_tpu_torch.prover.chunk_info import ChunkInfo
     from scroll_prover_tpu_torch.witness import chunk_trace_to_witness_block
-    from scroll_prover_tpu_torch.zkevm import INNER_DEGREE, ScrollSuperCircuit, chunk_instance
+    from scroll_prover_tpu_torch.zkevm import ScrollSuperCircuit, chunk_instance
 
     secs = {}
 
@@ -1285,11 +1354,14 @@ def chunk_proof(srs):
     trace = step("trace_json", lambda: synthetic_trace(CHUNK_TXS, CHUNK_LOGS))
     wb = step("witness", lambda: chunk_trace_to_witness_block([BlockTrace.from_json(trace)]))
     del trace
+    info = ChunkInfo.from_witness_block(wb)
     circ = ScrollSuperCircuit.new_from_block(wb)
     k = step("min_k", circ.min_k)
-    log(f"chunk: {wb.num_txs} txs, {wb.num_steps} steps, {len(wb.rw_rows)} rw rows, min_k {k}")
-    if k != INNER_DEGREE:
-        fail(f"the synthetic chunk's min_k is {k}, not {INNER_DEGREE}")
+    log(f"chunk: {wb.num_txs} txs, {wb.num_steps} steps, {len(wb.rw_rows)} rw rows, min_k {k}, "
+        f"{len(info.tx_bytes)} transaction bytes")
+    if k != CHUNK_K:
+        fail(f"the synthetic chunk's min_k is {k}, not {CHUNK_K}")
+    srs = step("srs_generate_fast", lambda: SRS.generate_fast(k, device=dev))
     instance = [chunk_instance(wb)]
 
     def assign_once():
@@ -1340,17 +1412,17 @@ def chunk_proof(srs):
         fail(f"the chunk prove walked {len(cosets)} cosets, not {ratio} (streamed quotient)")
     ok = step("verify", lambda: verify(srs, vk, instance, proof, multiopen="shplonk"))
     if not ok:
-        fail("the k=20 chunk proof did not verify")
+        fail(f"the k={k} chunk proof did not verify")
     bad = bytearray(proof)
     bad[100] ^= 1
     if verify(srs, vk, instance, bytes(bad), multiopen="shplonk"):
-        fail("a tampered k=20 chunk proof verified")
+        fail(f"a tampered k={k} chunk proof verified")
     digest = hashlib.sha256(proof).hexdigest()
     log(f"chunk proof: {len(proof)} bytes, verify True, tampered proof rejected; sha256 {digest} "
         f"(pinned {CHUNK_PROOF_SHA256})")
     if digest != CHUNK_PROOF_SHA256:
-        fail("the k=20 chunk proof's bytes differ from the pinned proof")
-    return secs, prove_again, proof
+        fail(f"the k={k} chunk proof's bytes differ from the pinned proof")
+    return secs, prove_again, proof, info
 
 
 def note_k2(passes: dict, *a) -> None:
@@ -1375,7 +1447,8 @@ def k2_pass_checks(passes: dict, dev, gen, where: str) -> int:
 
     worst = 0
     k2_control(dev, gen, where)
-    for key, (n_calls, (tw, twmid, pre, post, n_inv)) in sorted(passes.items()):
+    for key, (n_calls, tables) in sorted(passes.items()):
+        tw, twmid, pre, post, n_inv = (None if t is None else t.to(dev) for t in tables)
         shape, k, stride, last, inplace = key[0], key[1], key[2], key[-2], key[-1]
         x = rand_field(FR_LIMB, shape[0] * shape[1], gen, dev).reshape(shape)
 
@@ -1413,7 +1486,7 @@ def path_inputs(keys=("K2", "K3")):
     def hook(key, *a):
         if key == "K3":
             pts, digs, signs, B = a
-            live = (digs != 0).sum()
+            live = torch.count_nonzero(digs)
             seen["k3_live"].append(live)
             seen["k3_digits"] += digs.numel()
             rank = (digs.shape[0], int(live))
@@ -1484,10 +1557,21 @@ def counted(keys, fn):
     return out, launches, by_mode
 
 
+def gadget_seconds(marks, gadget: str, where: str) -> tuple[float, float]:
+    """(seconds of the layer's recording pass, seconds of its assignment)
+    from its gadget's marks: the pass runs once (min_k) and the assignment
+    replays its record."""
+    build = [t for msg, t in marks if msg.startswith(f"{gadget} build")]
+    replay = [t for msg, t in marks if msg.startswith(f"{gadget} assignment replay")]
+    if len(build) != 2 or len(replay) != 2:
+        fail(f"{where}: its gadget's marks are not one recording pass and one replay")
+    return build[1] - build[0], replay[1] - replay[0]
+
+
 def ladder_layer(prover, prev, prev_vk, layer: int, mo: str):
     """One layer of phase 6 through the facade's own layer code
-    (ChunkProver._compress_layer: min_k's counting pass, the SRS, keygen
-    with the assignment pass, the host accumulator, the prove), then
+    (ChunkProver._compress_layer: min_k's recording pass, the SRS, keygen
+    with the assignment's replay, the host accumulator, the prove), then
     verify and the accumulator's pairing. Returns (payload, vk, stats)."""
     from scroll_prover_tpu_torch.proof_system.plonk.verifier import acc_from_limbs, check_accumulator, verify
     from scroll_prover_tpu_torch.prover.verifier_circuit import ACC_CELLS
@@ -1502,20 +1586,16 @@ def ladder_layer(prover, prev, prev_vk, layer: int, mo: str):
         payload, vk, circ = prover._compress_layer(prev, prev_vk, layer, "ladder", mo,
                                                    seed=LADDER_SEED + bytes([layer]))
     at = {}
-    gadget = []
     for msg, t in marks.marks:
-        if msg.startswith("verifier-gadget build"):
-            gadget.append(t)
         for key in ("verifier circuit:", "srs ready", "keygen done", "proved"):
             if key in msg and msg.startswith("chunk ladder: layer"):
                 at[key] = t
-    if len(gadget) != 4:
-        fail(f"layer {layer} ran the verifier gadget {len(gadget) // 2} times, not twice (count, assign)")
+    count, assign = gadget_seconds(marks.marks, "verifier-gadget", f"layer {layer}")
     secs = {
-        "count": gadget[1] - gadget[0],
+        "count": count,
         "srs": at["srs ready"] - at["verifier circuit:"],
-        "assign": gadget[3] - gadget[2],
-        "keygen": at["keygen done"] - at["srs ready"] - (gadget[3] - gadget[2]),
+        "assign": assign,
+        "keygen": at["keygen done"] - at["srs ready"] - assign,
         "prove": at["proved"] - at["keygen done"],
     }
     prev_t = at["keygen done"]
@@ -1551,32 +1631,45 @@ def ladder_layer(prover, prev, prev_vk, layer: int, mo: str):
     return payload, vk, stats
 
 
-def ladder(srs, dev, gen, rows) -> dict:
+def chunk_instance_of(info) -> list[int]:
+    """The 9-cell chunk instance of a ChunkInfo, in the order that
+    ChunkVerifier's binding check derives it: chain id, prev, post and
+    withdraw roots (hi, lo), then the info's data hash (hi, lo)."""
+    from scroll_prover_tpu_torch.witness.block import WitnessBlock
+    from scroll_prover_tpu_torch.zkevm import chunk_instance
+
+    wb = WitnessBlock(chain_id=info.chain_id, prev_state_root=info.prev_state_root,
+                      post_state_root=info.post_state_root, withdraw_root=info.withdraw_root,
+                      tx_bytes=info.tx_bytes)
+    dh = int(info.data_hash, 16)
+    return chunk_instance(wb)[:7] + [dh >> 128, dh & ((1 << 128) - 1)]
+
+
+def ladder(srs, dev, gen, rows, info, held_k2=frozenset()):
     """Phase 6 (see the module docstring): the inner BenchCircuit proof at
-    k = 20, then layers 1 and 2 through ChunkProver, verified, pinned, and
-    the ChunkVerifier's outer check; then, after the launch counts are
-    read, K2 at every pass of the phase, K3 and K4 on layer 2's densest
-    commit group and K5 on slices of layer 2's SRS scalars, each against
-    its plain version. Returns the per-layer stats."""
+    k = 20 over the chunk instance of `info` (phase 5's ChunkInfo, chain id
+    LADDER_CHAIN_ID), then layers 1 and 2 through ChunkProver, verified,
+    pinned, wrapped into a ChunkProofV2 that ChunkVerifier accepts; then,
+    after the launch counts are read, K2 at every pass of the phase that
+    earlier phases did not hold (`held_k2`, note_k2's keys) against its plain
+    version. Returns (per-layer stats, the ChunkProofV2, the params map, the
+    keys of the K2 passes held so far)."""
     from scroll_prover_tpu_torch.integration.bench_circuit import BenchCircuit
-    from scroll_prover_tpu_torch.ops import fixed_base as fb
     from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen
     from scroll_prover_tpu_torch.proof_system.plonk.prover import prove
     from scroll_prover_tpu_torch.proof_system.plonk.verifier import verify
-    from scroll_prover_tpu_torch.prover import ChunkProver, ChunkVerifier
-    from scroll_prover_tpu_torch.prover.proofs import ProofPayload
+    from scroll_prover_tpu_torch.prover import ChunkProofV2, ChunkProver, ChunkVerifier
+    from scroll_prover_tpu_torch.prover.proofs import ChunkProofInner, ProofPayload
     from scroll_prover_tpu_torch.prover.protocol import protocol_from_vk
     from scroll_prover_tpu_torch.prover.provers import _ladder_multiopen
 
     mo = _ladder_multiopen()
-    k, instance = 20, [[7]]
+    info = dataclasses.replace(info, chain_id=LADDER_CHAIN_ID)
+    k, instance = 20, [chunk_instance_of(info)]
     passes = {}
-    k5_slices = []
-    seen = None
     out = {}
 
     def run():
-        nonlocal seen
         circ = BenchCircuit(4096)
         t0 = time.perf_counter()
         pk, vk = keygen(srs, k, circ, instance)
@@ -1586,18 +1679,14 @@ def ladder(srs, dev, gen, rows) -> dict:
             fail("the ladder's inner k=20 proof did not verify")
         torch.cuda.synchronize()
         out["inner_seconds"] = time.perf_counter() - t0
-        log(f"ladder inner proof (BenchCircuit(4096), k = {k}, {mo}): keygen, prove and verify "
-            f"{out['inner_seconds']:.2f} s, {len(proof)} bytes")
-        prev = ProofPayload(proof=proof, instances=instance[0], protocol=protocol_from_vk(vk, 1, multiopen=mo),
+        log(f"ladder inner proof (BenchCircuit(4096), k = {k}, {mo}, {len(instance[0])} instance cells): "
+            f"keygen, prove and verify {out['inner_seconds']:.2f} s, {len(proof)} bytes")
+        prev = ProofPayload(proof=proof, instances=instance[0],
+                            protocol=protocol_from_vk(vk, len(instance[0]), multiopen=mo),
                             vk_id=hex(vk.transcript_repr()))
         prover = ChunkProver(params_map={k: srs}, device=dev)
         p1, vk1, out["layer1"] = ladder_layer(prover, prev, vk, 1, mo)
-
-        def k5_note(_key, table, digs):
-            k5_slices.append((table, digs[:, :LADDER_K5_SLICE].clone()))
-
-        with path_inputs(("K3",)) as seen, hooked(("K5",), k5_note):
-            p2, vk2, out["layer2"] = ladder_layer(prover, p1, vk1, 2, mo)
+        p2, vk2, out["layer2"] = ladder_layer(prover, p1, vk1, 2, mo)
         bad = bytearray(p2.proof)
         bad[100] ^= 1
         try:
@@ -1606,26 +1695,29 @@ def ladder(srs, dev, gen, rows) -> dict:
             rejected = True
         if not rejected:
             fail("a tampered layer-2 proof verified")
+        chunk = ChunkProofV2(ChunkProofInner(layers=[prev, p1, p2], chunk_info_=info))
         t0 = time.perf_counter()
-        if not ChunkVerifier(prover.params_map, device=dev)._verify_outer(p2):
-            fail("ChunkVerifier rejected the layer-2 proof (registry vk, SNARK check, pairing)")
-        out["outer_check_seconds"] = time.perf_counter() - t0
-        log(f"layer 2: tampered proof rejected; ChunkVerifier outer check True in {out['outer_check_seconds']:.2f} s")
-        return p1, p2
+        if not ChunkVerifier(prover.params_map, device=dev).verify_chunk_proof(chunk):
+            fail("ChunkVerifier.verify_chunk_proof rejected the chunk proof")
+        out["verify_chunk_proof_seconds"] = time.perf_counter() - t0
+        log(f"layer 2: tampered proof rejected; ChunkVerifier.verify_chunk_proof True in "
+            f"{out['verify_chunk_proof_seconds']:.2f} s")
+        return chunk, prover.params_map
 
     def run_hooked():
         with hooked(("K2",), lambda _key, *a: note_k2(passes, *a)):
             return run()
 
     t0 = time.perf_counter()
-    (p1, p2), launches, modes = counted(LADDER_PATH, run_hooked)
+    (chunk, params_map), launches, modes = counted(LADDER_PATH, run_hooked)
     log(f"ladder: {time.perf_counter() - t0:.1f} s; launches: {json.dumps(launches)}; K1 by mode: {json.dumps(modes)}")
     for key, v in launches.items():
         rows[key]["ladder_launches"] = v
     for key, by_mode in modes.items():
         for mode, v in by_mode.items():
             rows[key]["modes"][mode]["ladder_launches"] = v
-    for layer, (proof, pinned) in enumerate(((p1.proof, LAYER1_PROOF_SHA256), (p2.proof, LAYER2_PROOF_SHA256)), 1):
+    for layer, pinned in ((1, LAYER1_PROOF_SHA256), (2, LAYER2_PROOF_SHA256)):
+        proof = chunk.inner.layers[layer].proof
         digest = hashlib.sha256(proof).hexdigest()
         log(f"layer {layer} proof: {len(proof)} bytes, sha256 {digest} (pinned {pinned})")
         if digest != pinned:
@@ -1635,21 +1727,311 @@ def ladder(srs, dev, gen, rows) -> dict:
     torch.cuda.empty_cache()
     log(f"ladder checks: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of device memory still held")
     t0 = time.perf_counter()
-    seen["k2"] = passes
-    for key, err in chunk_kernel_checks(seen, dev, gen, "the ladder").items():
-        rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+    # K3, K4 and K5 are held on phase 7's larger shapes (layer 3's densest
+    # commit group at 2^23 points, its SRS scalars)
+    new = {key: v for key, v in passes.items() if key not in held_k2}
+    log(f"ladder: K2 gave {len(passes)} distinct passes, {len(new)} of them not held in earlier phases")
+    rows["K2"]["max_abs_err"] = max(rows["K2"]["max_abs_err"], k2_pass_checks(new, dev, gen, "the ladder"))
+    log(f"ladder checks: {time.perf_counter() - t0:.1f} s")
+    return out, chunk, params_map, frozenset(held_k2) | frozenset(passes)
+
+
+class _BatchMarks(_Marks):
+    """_Marks for phase 7: at each mark also the peak device memory since
+    the mark before (the peak is then reset), the launches of BATCH_PATH so
+    far, and in `layer` the layer whose keygen and prove are running (3 or
+    4, from its SRS to its proof; None between)."""
+
+    def __init__(self):
+        super().__init__()
+        self.peaks = []
+        self.launches = []
+        self.layer = None
+
+    def emit(self, record):
+        super().emit(record)
+        msg = record.getMessage()
+        self.peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        self.launches.append({key: wrapper(key).launches for key in BATCH_PATH})
+        for layer in (3, 4):
+            if msg == f"batch: layer{layer} srs ready":
+                self.layer = layer
+            elif msg == f"batch: layer{layer} proved":
+                self.layer = None
+
+
+def batch_layer_stats(marks, layer: int, gadget: str, first: int) -> tuple[dict, int]:
+    """One layer's seconds, rows, k, peak device memory, RSS at its marks
+    and launches from phase 7's marks, starting at mark index `first` (the
+    layer's recording pass comes first; `gadget` names its builder's
+    marks). Returns (stats, the index after the layer's last mark)."""
+    msgs = [m for m, _ in marks.marks[first:]]
+    end = first + msgs.index(f"batch: layer{layer} proved") + 1
+    span = range(first, end)
+    times = {}
+    for i in span:
+        msg, t = marks.marks[i]
+        for key in ("circuit:", "srs ready", "keygen done", "proved"):
+            if msg.startswith(f"batch: layer{layer} {key}"):
+                times[key] = t
+                if key == "circuit:":
+                    rows_k = msg.split(": ")[-1]
+    count, assign = gadget_seconds([marks.marks[i] for i in span], gadget, f"batch layer {layer}")
+    secs = {
+        "count": count,
+        "srs": times["srs ready"] - times["circuit:"],
+        "assign": assign,
+        "keygen": times["keygen done"] - times["srs ready"] - assign,
+        "prove": times["proved"] - times["keygen done"],
+    }
+    before = marks.launches[first - 1] if first else dict.fromkeys(BATCH_PATH, 0)
+    stats = {
+        "rows_k": rows_k, "seconds": secs,
+        "peak_device_gib": max(marks.peaks[i] for i in span) / 2**30,
+        "peak_rss_at_marks_gib": max(marks.rss[i] for i in span),
+        "launches": {key: marks.launches[end - 1][key] - before[key] for key in BATCH_PATH},
+    }
+    return stats, end
+
+
+def batch(chunk, params_map, dev, gen, rows, held_k2):
+    """Phase 7 (see the module docstring): the blob and header of phase 6's
+    chunk, layers 3 and 4 through BatchProver's own code, verified, pinned
+    and checked by BatchVerifier; then, after the launch counts are read,
+    K2 at the passes earlier phases did not hold (`held_k2`), K3 and K4 on a slice of layer
+    3's densest commit group and K5 on slices of layer 3's SRS scalars,
+    each against its plain version. Returns the phase's stats."""
+    from scroll_prover_tpu_torch.aggregator.batch_header import BatchHeader
+    from scroll_prover_tpu_torch.integration.prove import get_blob_from_chunks
+    from scroll_prover_tpu_torch.native.zstd_codec import zstd_available
+    from scroll_prover_tpu_torch.ops import fixed_base as fb
+    from scroll_prover_tpu_torch.ops import msm_tile as mt
+    from scroll_prover_tpu_torch.proof_system.plonk.verifier import acc_from_limbs, check_accumulator, verify
+    from scroll_prover_tpu_torch.prover import BatchProver, BatchVerifier
+    from scroll_prover_tpu_torch.prover.provers import _L4_DH0, _ladder_multiopen, load_vk
+    from scroll_prover_tpu_torch.prover.tasks import BatchProvingTask
+    from scroll_prover_tpu_torch.prover.verifier_circuit import ACC_CELLS
+
+    mo = _ladder_multiopen()
+    info = chunk.inner.chunk_info()
+    out = {"seconds": {}}
+    passes = {}
+    k5_slices = []
+    timed = {key: [] for key in ("K2", "K3", "K4")}
+    pending = {}
+    k3 = {"rank": (-1, -1), "args": None}
+    marks = _BatchMarks()
+
+    hook_s = {"K2 tables to the host": 0.0, "K3 digit counts": 0.0, "all": 0.0}
+
+    def note(key, *a):
+        t0 = time.perf_counter()
+        note_hooked(key, *a)
+        hook_s["all"] += time.perf_counter() - t0
+
+    def note_hooked(key, *a):
+        if key == "K2":
+            n_before = len(passes)
+            note_k2(passes, *a)
+            if len(passes) > n_before:  # a new pass: its tables wait on the host (2^26 ones are 4 GiB)
+                t0 = time.perf_counter()
+                last = next(reversed(passes))
+                n_calls, tables = passes[last]
+                passes[last] = (n_calls, tuple(None if t is None else t.cpu() for t in tables))
+                hook_s["K2 tables to the host"] += time.perf_counter() - t0
+        elif key == "K5":
+            table, digs = a
+            k5_slices.append((table, digs[:, :BATCH_K5_SLICE].clone()))
+        if marks.layer == 3 and key in timed:
+            w = work(key, *a)
+            if key == "K3":  # the digits' count is on the card: read it before the timed launch
+                t0 = time.perf_counter()
+                pts, digs, signs, B = a
+                rank = (digs.shape[0], int(w[1]) // (11 * MULS_PER_MONT))
+                if rank > k3["rank"]:
+                    k3["rank"] = rank
+                    k3["args"] = (pts, digs[:BATCH_K3_ROWS].cpu(), signs[:BATCH_K3_ROWS].cpu(), B, tuple(digs.shape))
+                hook_s["K3 digit counts"] += time.perf_counter() - t0
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            pending[key] = (start, w)
+
+    def done(key):
+        t0 = time.perf_counter()
+        done_hooked(key)
+        hook_s["all"] += time.perf_counter() - t0
+
+    def done_hooked(key):
+        if key in pending:
+            start, w = pending.pop(key)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            timed[key].append((start, end, w))
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        log(f"batch {name}: {out['seconds'][name]:.2f} s")
+        return res
+
+    def run():
+        blob = step("blob", lambda: get_blob_from_chunks([info]))
+        log(f"batch blob: zstd_available() {zstd_available()}, envelope byte 0x{blob[0]:02x}, {len(blob)} bytes "
+            f"({len(info.tx_bytes)} transaction bytes of one chunk)")
+        header = step("header", lambda: BatchHeader.construct_from_chunks(
+            4, 0, 0, 0, b"\0" * 32, 1_700_000_000, [info], blob))
+        log(f"batch header: batch hash 0x{header.batch_hash().hex()}, blob versioned hash "
+            f"0x{header.blob_versioned_hash.hex()}")
+        task = BatchProvingTask([chunk], header, blob)
+        prover = BatchProver(params_map, device=dev)
+        with prover_marks("scroll_prover_tpu_torch", "batch prove", marks), hooked(("K2", "K3", "K4", "K5"), note, done):
+            proof = step("prove", lambda: prover._gen_batch_proof(task, seed=BATCH_SEED))
+        del prover
+        return proof
+
+    before = {key: wrapper(key).launches for key in KERNELS}
+    t0 = time.perf_counter()
+    proof, launches, modes = counted(BATCH_PATH, run)
+    out["seconds"]["phase"] = time.perf_counter() - t0
+    for key in KERNELS:
+        rows[key]["batch_launches"] = launches[key] if key in launches else wrapper(key).launches - before[key]
+    for key, by_mode in modes.items():
+        for mode, v in by_mode.items():
+            rows[key]["modes"][mode]["batch_launches"] = v
+    log(f"batch: {out['seconds']['phase']:.1f} s; launches: {json.dumps(launches)}; K1 by mode: {json.dumps(modes)}")
+    out["hook_seconds"] = hook_s
+    log(f"batch: host seconds inside the phase's kernel hooks (inside its layers' seconds below): "
+        f"{json.dumps(hook_s)}")
+    for layer in (3, 4):  # the prover's phases and cosets, from its marks
+        start = next(t for msg, t in marks.marks if msg == f"batch: layer{layer} keygen done")
+        end = next(t for msg, t in marks.marks if msg == f"batch: layer{layer} proved")
+        prev = start
+        for msg, t in marks.marks:
+            if start < t <= end and (msg.startswith("prove[") or msg.startswith("quotient coset") and msg.endswith(" done")):
+                label = msg[len("prove["):msg.index("]")] if msg.startswith("prove[") else msg.removesuffix(" done")
+                log(f"batch layer {layer} prove: {label}: {t - prev:.2f} s")
+                prev = t
+
+    l3, l4 = proof.inner.layers
+    first = 0
+    for layer, payload, gadget in ((3, l3, "aggregation-gadget"), (4, l4, "verifier-gadget")):
+        stats, first = batch_layer_stats(marks, layer, gadget, first)
+        vk = load_vk(payload.vk_id)
+        srs = params_map[vk.k]
+        t1 = time.perf_counter()
+        if not verify(srs, vk, [payload.instances], payload.proof, multiopen=mo):
+            fail(f"the batch's layer-{layer} proof did not verify")
+        stats["seconds"]["verify"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        if not check_accumulator(srs, *acc_from_limbs(payload.instances[:ACC_CELLS])):
+            fail(f"the batch's layer-{layer} accumulator fails its pairing")
+        stats["seconds"]["accumulator"] = time.perf_counter() - t1
+        cs = vk.cs
+        stats.update({
+            "k": vk.k, "advice": cs.num_advice, "fixed": cs.num_fixed, "lookups": len(cs.lookups),
+            "gates": len(cs.gates), "permutation": len(cs.perm_columns), "extended_k": vk.domain.extended_k,
+            "instances": len(payload.instances), "proof_bytes": len(payload.proof),
+        })
+        out[f"layer{layer}"] = stats
+        log(f"batch layer {layer}: {json.dumps(stats)}")
+    log(f"batch: process peak host RSS {rss_gib():.2f} GiB")
+
+    verifier = BatchVerifier(params_map, device=dev)
+
+    def verdict(p):
+        try:
+            return verifier.verify_batch_proof(p)
+        except (AssertionError, ValueError):
+            return False
+
+    t1 = time.perf_counter()
+    if not verdict(proof):
+        fail("BatchVerifier.verify_batch_proof rejected the batch proof")
+    out["seconds"]["verify_batch_proof"] = time.perf_counter() - t1
+    blob = proof.inner.blob_bytes
+    bad_blob = bytearray(blob)
+    bad_blob[len(blob) // 2] ^= 1
+    proof.inner.blob_bytes = bytes(bad_blob)
+    if verdict(proof):
+        fail("a batch proof with one blob byte flipped verified")
+    proof.inner.blob_bytes = blob
+    bad = bytearray(l4.proof)
+    bad[100] ^= 1
+    proof.inner.layers[1] = dataclasses.replace(l4, proof=bytes(bad))
+    if verdict(proof):
+        fail("a batch proof with one byte of layer 4's proof flipped verified")
+    proof.inner.layers[1] = l4
+    dh = int(info.data_hash, 16)
+    if l3.instances[_L4_DH0:_L4_DH0 + 2] != [dh >> 128, dh & ((1 << 128) - 1)]:
+        fail("layer 3's exposed data-hash cells differ from the chunk's data hash")
+    log(f"batch: verify_batch_proof True in {out['seconds']['verify_batch_proof']:.2f} s; a flipped blob byte and "
+        f"a flipped layer-4 proof byte rejected; exposed data hash == the chunk's")
+    envelope = proof.inner.blob_bytes[0]
+    if envelope not in BATCH_LAYER3_PROOF_SHA256:
+        fail(f"the blob's envelope byte 0x{envelope:02x} has no pinned batch proofs")
+    for layer, payload, pins in ((3, l3, BATCH_LAYER3_PROOF_SHA256), (4, l4, BATCH_LAYER4_PROOF_SHA256)):
+        pinned = pins[envelope]
+        digest = hashlib.sha256(payload.proof).hexdigest()
+        log(f"batch layer {layer} proof: {len(payload.proof)} bytes, sha256 {digest} (pinned {pinned})")
+        if digest != pinned:
+            fail(f"the batch's layer-{layer} proof's bytes differ from the pinned proof")
+    del proof
+
+    # per-launch time on layer 3's keygen and prove beside the summed bound
+    torch.cuda.synchronize()
+    for key, calls in timed.items():
+        ms = sum(s.elapsed_time(e) for s, e, _ in calls)
+        b = sum(bound(*w)[0] for _, _, w in calls)
+        n = max(len(calls), 1)
+        out[f"{key}_layer3"] = {"calls": len(calls), "ms_per_call": ms / n, "bound_ms_per_call": b / n}
+        log(f"{key} on layer 3's keygen and prove: {len(calls)} calls, {ms / n:.4f} ms per call by CUDA events, "
+            f"bound {b / n:.4f} ms per call, {100 * b / max(ms, 1e-9):.1f}% of bound")
+    del timed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"batch checks: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of device memory still held")
+    t0 = time.perf_counter()
+    errs = {}
+    pts, digs, signs, B, full = k3["args"]
+    digs, signs = digs.to(dev), signs.to(dev)
+    k3_ms, raw = event_ms(lambda: mt._accum_k3(pts, digs, signs, B), 3)
+    b3 = bound(*work("K3", pts, digs, signs, B))
+    p_ms, plain = wall_ms(lambda: mt._accum_v2_plain(pts, digs, signs, B))
+    errs["K3"] = max_abs_err(raw, plain)
+    log(f"K3 on {tuple(digs.shape)} of layer 3's densest commit group {full} ({k3['rank'][1]} non-zero digits in "
+        f"the group): {k3_ms:.3f} ms by CUDA events, bound {b3[0]:.3f} ms ({b3[1]}); vs plain version "
+        f"({p_ms / 1e3:.1f} s wall): max_abs_err {errs['K3']}")
+    del plain, pts, digs, signs
+    k4_ms, red = event_ms(lambda: mt._lane_reduce_k4(raw), 3)
+    b4 = bound(*work("K4", raw))
+    errs["K4"] = max_abs_err(red, mt._lane_reduce_plain(raw))
+    log(f"K4 on that K3 output {tuple(raw.shape)}: {k4_ms:.4f} ms by CUDA events, bound {b4[0]:.4f} ms "
+        f"({b4[1]}); vs plain version: max_abs_err {errs['K4']}")
+    del raw, red
+    new = {key: v for key, v in passes.items() if key not in held_k2}
+    log(f"batch: K2 gave {len(passes)} distinct passes, {len(new)} of them not held in earlier phases")
+    errs["K2"] = k2_pass_checks(new, dev, gen, "the batch")
     worst = 0
     for table, digs in k5_slices:
         k5_ms, got = event_ms(lambda: torch.stack(list(fb._accumulate_k5(table, digs))), 3)
         err = max_abs_err(got, torch.stack(list(fb._accumulate_plain(table, digs))))
         b5 = bound(*work("K5", table, digs))
-        log(f"K5 on a slice of layer 2's SRS scalars {tuple(digs.shape)}: {k5_ms:.4f} ms by CUDA events, "
+        log(f"K5 on a slice of layer 3's SRS scalars {tuple(digs.shape)}: {k5_ms:.4f} ms by CUDA events, "
             f"bound {b5[0]:.4f} ms ({b5[1]}); vs plain version: max_abs_err {err}")
         worst = max(worst, err)
-    if not k5_slices or worst != 0:
-        fail("K5 disagrees with its plain version on layer 2's SRS scalars (or never ran there)")
-    rows["K5"]["max_abs_err"] = max(rows["K5"]["max_abs_err"], worst)
-    log(f"ladder checks: {time.perf_counter() - t0:.1f} s")
+    if not k5_slices:
+        fail("K5 never ran in phase 7")
+    errs["K5"] = worst
+    for key, err in errs.items():
+        if err != 0:
+            fail(f"{key} disagrees with its plain version at phase 7's shapes")
+        rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+    out["seconds"]["checks"] = time.perf_counter() - t0
+    log(f"batch checks: {out['seconds']['checks']:.1f} s")
     return out
 
 
@@ -1663,7 +2045,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
-    dev = torch.device("cuda:0")
+    from scroll_prover_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda:0")  # the package's own allocator settings come with it
     torch.cuda.set_device(dev)
     smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1687,6 +2071,7 @@ def main() -> None:
     t0 = time.perf_counter()
     rows = check_kernels(dev, gen)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+    clock("phases 1-2")
 
     launches = {key: None for key in KERNELS}
     if not args.skip_main:
@@ -1709,7 +2094,9 @@ def main() -> None:
         log(f"main path peak device memory {peak_dev / 2**30:.2f} GiB; peak host RSS {rss_kib / 2**20:.2f} GiB")
         log(f"main path launches: {json.dumps(main_launches)}; K1 by mode: {json.dumps(by_mode)}")
         rows["K2"]["max_abs_err"] = max(rows["K2"]["max_abs_err"], k2_pass_checks(k2_main, dev, gen, "phase 3"))
+        held_k2 = frozenset(k2_main)  # K2 passes held so far: later phases hold only new ones
         del k2_main
+        clock("phase 3")
 
         t0 = time.perf_counter()
         cols, alt_launches, _ = counted(ALT_PATH, lambda: alt_engines(dev, gen, srs))
@@ -1725,6 +2112,7 @@ def main() -> None:
                 target = rows[key]["modes"][mode] if mode else rows[key]
                 target.update({"prove_launches": st["launches"], "prove_device_ms": st["device_ms"]})
         del prove_again, cols
+        clock("phase 4")
 
         # the phase runs at the package's defaults: no cap or degree knob
         for knob in [v for v in os.environ if v.startswith("SPT_")]:
@@ -1735,9 +2123,9 @@ def main() -> None:
         t0 = time.perf_counter()
         def chunk_run():
             with path_inputs() as seen:
-                return chunk_proof(srs), seen
+                return chunk_proof(dev), seen
 
-        ((secs, chunk_again, chunk), seen), chunk_launches, chunk_modes = counted(CHUNK_PATH, chunk_run)
+        ((secs, chunk_again, chunk, info), seen), chunk_launches, chunk_modes = counted(CHUNK_PATH, chunk_run)
         for key, v in chunk_launches.items():
             rows[key]["chunk_launches"] = v
         for key, modes in chunk_modes.items():
@@ -1750,6 +2138,7 @@ def main() -> None:
         log(f"chunk launches: {json.dumps(chunk_launches)}; K1 by mode: {json.dumps(chunk_modes)}")
         for key, err in chunk_kernel_checks(seen, dev, gen).items():
             rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+        held_k2 |= frozenset(seen["k2"])
         del seen
         if args.profile:  # two more chunk proves, profiled, after the counts are read
             for label, st in profile_prove(chunk_again, chunk, args.profile, tag="chunk_prove").items():
@@ -1758,6 +2147,7 @@ def main() -> None:
                 target.update({"chunk_device_ms": st["device_ms"],
                                "chunk_bound_ms_per_launch": st["bound_ms_per_launch"]})
         del chunk_again, chunk
+        clock("phase 5")
 
         # phase 6 at the package's defaults too, on a card freed of phase 5
         for knob in [v for v in os.environ if v.startswith("SPT_")]:
@@ -1766,7 +2156,23 @@ def main() -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         log(f"ladder: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of device memory held from earlier phases")
-        ladder(srs, dev, gen, rows)
+        _stats, chunk, params_map, held_k2 = ladder(srs, dev, gen, rows, info, held_k2)
+        clock("phase 6")
+
+        # phase 7 at the package's defaults, on a card freed of phase 6's
+        # prover (its keygen cache and its circuits' assignments went with
+        # it); the chunk proof, the vk registry and the params map stay
+        # (layer 4 reuses its 2^22 SRS)
+        for knob in [v for v in os.environ if v.startswith("SPT_")]:
+            log(f"batch: ignoring {knob}={os.environ.pop(knob)}")
+        del srs
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"batch: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of device memory held from earlier phases; "
+            f"host RSS {proc_status_gib('VmRSS'):.2f} GiB")
+        batch(chunk, params_map, dev, gen, rows, held_k2)
+        clock("phase 7")
 
     kernels = []
     for key, (_mod, _fn, _cnames, src, rep) in KERNELS.items():
@@ -1783,3 +2189,4 @@ def main() -> None:
 
 if __name__ == "__main__":
     main()
+    leave(0)

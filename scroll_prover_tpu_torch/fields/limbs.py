@@ -16,6 +16,7 @@ chosen for the TPU VPU rather than x86-64.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from operator import methodcaller
 from typing import Sequence
 
 import numpy as np
@@ -82,6 +83,9 @@ def packed_to_ints(packed: np.ndarray) -> list[int]:
     ]
 
 
+_TO_32_LE = methodcaller("to_bytes", 32, "little")
+
+
 def _small_to_packed(small: np.ndarray) -> np.ndarray:
     """Non-negative int64 values -> packed words."""
     out = np.zeros((len(small), N_WORDS), np.uint32)
@@ -113,7 +117,10 @@ def objcol_to_packed(col) -> np.ndarray:
     full = np.empty((len(arr), N_WORDS), np.uint32)
     full[fits] = out
     rest = np.nonzero(~fits)[0]
-    full[rest] = ints_to_packed([int(v) % FR_MOD for v in arr[rest]])
+    # reduced and serialized without a Python frame per value (a layer's
+    # advice columns hold millions of them)
+    buf = b"".join(map(_TO_32_LE, arr[rest] % FR_MOD))
+    full[rest] = np.frombuffer(buf, dtype="<u4").reshape(len(rest), N_WORDS)
     return full
 
 

@@ -31,17 +31,24 @@ SPT_BUILDER_LOOKUP_COLS env defaults.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
 
 from ..fields.bn254 import FR_MOD
 from ..proof_system.plonk.cs import ConstraintSystem
 
 
-@dataclass(frozen=True)
-class Cell:
+class Cell(NamedTuple):
+    """An assigned cell. A named tuple: a pass makes millions of them, and a
+    tuple is made and held at a fraction of a frozen dataclass's cost."""
+
     col: object  # ColumnRef
     row: int
     val: int  # witness value mod FR_MOD (host-side shadow)
+
+
+_new_cell = tuple.__new__  # Cell(col, row, val) without the constructor's frame
 
 
 # fixed-coefficient slots, in declaration order
@@ -114,9 +121,29 @@ class Builder:
         self.row0 = row0
         self._op = 0       # arithmetic op counter (round-robin over lanes)
         self._lkslot = 0   # range-chunk counter (round-robin over lk cols)
+        # tables shorter than n grow as rows reach them (a layer's recording
+        # pass, which does not know its n yet); columns without a shape
+        # (a counting pass's sinks) take every row
+        shape = getattr(adv, "shape", None)
+        self._cap = n if shape is None else shape[1]
+        self._growable = self._cap < n
         for v in range(1 << self.lookup_bits):
-            fixed[self.range_table.index][v] = v
+            fixed[self.range_table.index, v] = v
         return self
+
+    def ensure_rows(self, r: int) -> None:
+        """Growable tables hold row r (a writer that caches self.adv or
+        self.fixed reads them again after this)."""
+        if self._growable and r >= self._cap:
+            cap = self._cap
+            while cap <= r:
+                cap *= 2
+            for name in ("fixed", "adv"):
+                old = getattr(self, name)
+                new = np.zeros((old.shape[0], cap), dtype=object)
+                new[:, : self._cap] = old
+                setattr(self, name, new)
+            self._cap = cap
 
     @property
     def row(self) -> int:
@@ -132,22 +159,27 @@ class Builder:
         """One gate row on the next round-robin lane. vals[i] may be None
         (unused slot -> 0). copies is a list of (slot, Cell)
         equal-constraints."""
-        lane = self._op % self.lanes
-        r = self.row0 + self._op // self.lanes
+        op = self._op
+        lane = op % self.lanes
+        r = self.row0 + op // self.lanes
         assert r < self.n - 8, "gadget region overflow"
-        cells = []
-        for i in range(self.W):
-            v = int(vals[i]) % FR_MOD if vals[i] is not None else 0
-            self.adv[self.w[lane][i].index][r] = v
-            cells.append(Cell(self.w[lane][i], r, v))
+        if r >= self._cap:
+            self.ensure_rows(r)
+        wl = self.w[lane]
+        vs = [0 if v is None else int(v) % FR_MOD for v in vals[: self.W]]
+        adv = self.adv
+        for col, v in zip(wl, vs):
+            adv[col.index, r] = v
+        fixed = self.fixed
+        ql = self.q[lane]
         for name, cv in coeffs.items():
-            self.fixed[self.q[lane][name].index][r] = int(cv) % FR_MOD
-        for slot, src in copies:
-            self.cs.copy(self.w[lane][slot], r, src.col, src.row)
+            fixed[ql[name].index, r] = int(cv) % FR_MOD
         if qbool:
-            self.fixed[self.qbool[lane].index][r] = 1
-        self._op += 1
-        return cells
+            fixed[self.qbool[lane].index, r] = 1
+        for slot, src in copies:
+            self.cs.copy(wl[slot], r, src.col, src.row)
+        self._op = op + 1
+        return [_new_cell(Cell, (col, r, v)) for col, v in zip(wl, vs)]
 
     # -- primitive ops -----------------------------------------------------
 
@@ -334,14 +366,19 @@ class Builder:
     def _lk_slot(self, v: int) -> Cell:
         """Place a value in the next lookup-advice slot (range-checked to
         lookup_bits by the column's lookup argument)."""
-        assert 0 <= int(v) < (1 << self.lookup_bits)
-        j = self._lkslot % self.n_lookup
-        r = self.row0 + self._lkslot // self.n_lookup
+        v = int(v)
+        assert 0 <= v < (1 << self.lookup_bits)
+        slot = self._lkslot
+        j = slot % self.n_lookup
+        r = self.row0 + slot // self.n_lookup
         assert r < self.n - 8, "lookup region overflow"
-        self.adv[self.lk[j].index][r] = int(v)
-        self.fixed[self.q_lk[j].index][r] = 1
-        self._lkslot += 1
-        return Cell(self.lk[j], r, int(v))
+        if r >= self._cap:
+            self.ensure_rows(r)
+        col = self.lk[j]
+        self.adv[col.index, r] = v
+        self.fixed[self.q_lk[j].index, r] = 1
+        self._lkslot = slot + 1
+        return _new_cell(Cell, (col, r, v))
 
     def range_row(self, vals: list[int]) -> list[Cell]:
         """Range-checked witnesses (lookup-advice slots)."""

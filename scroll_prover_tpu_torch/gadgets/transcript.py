@@ -40,8 +40,6 @@ class InCircuitTranscript:
         self.b = b
         self.pos = pos
         self.cs = b.cs
-        self.fixed = b.fixed
-        self.adv = b.adv
         self._proof = memoryview(proof)
         self._pos = 0
         self._row = row0
@@ -53,8 +51,12 @@ class InCircuitTranscript:
 
     def _emit_chunk(self, e0: Cell, e1: Cell | None):
         """One absorb row + 65 permutation rows in the poseidon columns."""
-        pos, adv, fixed = self.pos, self.adv, self.fixed
         r = self._row
+        # the tail chunk's zero cell, before the tables are read: emitting
+        # it may grow them (a recording pass)
+        z = self.b.const(0) if e1 is None else None
+        self.b.ensure_rows(r + 66)
+        pos, adv, fixed = self.pos, self.b.adv, self.b.fixed
         if not self._started:
             fixed[pos.sel_init.index][r] = 1
             self._started = True
@@ -69,7 +71,6 @@ class InCircuitTranscript:
             self.cs.copy(pos.elem[1], r, e1.col, e1.row)
         else:
             # rate-1 tail chunk: elem1 must be constrained to zero
-            z = self.b.const(0)
             self.cs.copy(pos.elem[1], r, z.col, z.row)
         fixed[pos.sel_absorb.index][r] = 1
         r += 1

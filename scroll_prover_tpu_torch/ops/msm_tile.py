@@ -337,9 +337,13 @@ def msm_v2_host_batch(points_affine_mont, scalar_limbs_list):
     W, B = _wb(MSM_C)
     points, scalars = _pad_points_scalars(points_affine_mont, scalar_limbs_list)
     pts = _msm_pack_points(points)
-    prepped = [_msm_prep_digits(sl, MSM_C) for sl in scalars]
-    digs = torch.cat([d for d, _ in prepped])  # (C*W, n)
-    signs = torch.cat([s for _, s in prepped])
+    # each column's digits and signs go straight into the (C*W, n) pair: a
+    # list of the columns' pairs concatenated after would hold both copies
+    # at once (43 GiB for 8 columns at 2^23 points)
+    digs = torch.empty((len(scalars) * W, points.shape[0]), dtype=LIMB_DTYPE, device=points.device)
+    signs = torch.empty_like(digs)
+    for i, sl in enumerate(scalars):
+        digs[i * W:(i + 1) * W], signs[i * W:(i + 1) * W] = _msm_prep_digits(sl, MSM_C)
     tbl = _lane_reduce_v2(_accum_v2(pts, digs, signs, B))
     tbl_h = limbs_from_torch(tbl).reshape(len(scalars), W, B, 3, N_LIMBS)
     return [_host_fold_mont(t, MSM_C) for t in tbl_h]

@@ -87,6 +87,16 @@ class EvaluationDomain:
         self._table("tiled_ext", device)
         self._table("coset_pow_inv", device)
 
+    def release_extended(self, device) -> None:
+        """Drop the extended domain's device tables (the next transform
+        rebuilds them)."""
+        for name in ("tiled_ext", "coset_pow", "coset_pow_inv"):
+            self._tables.pop((name, str(device)), None)
+
+    def release(self) -> None:
+        """Drop every device table (the next transform rebuilds them)."""
+        self._tables.clear()
+
     def intt_extended(self, y):
         """Evals over zeta*H_ext -> coefficients."""
         assert y.shape == (self.extended_n, N_LIMBS)

@@ -32,8 +32,17 @@ _SRS_CACHE: dict = {}
 
 # below this size a host Pippenger commit is cheaper than the device MSM
 DEVICE_MSM_THRESHOLD = 65536
-# columns per batched device commit (one K3 launch)
+# columns per batched device commit (one K3 launch) of up to COMMIT_POINTS
+# points each; longer columns go fewer at a time, so that a launch's digits,
+# signs and bucket runs stay the size of 8 columns of 2^22 (their 43 GiB at
+# 8 columns of 2^23 did not fit beside a k = 23 prove)
 COMMIT_GROUP = 8
+COMMIT_POINTS = 1 << 22
+
+
+def commit_group(n: int) -> int:
+    """Columns of n points per batched device commit."""
+    return max(1, COMMIT_GROUP * COMMIT_POINTS // max(n, COMMIT_POINTS))
 
 
 class SRS:
@@ -291,7 +300,7 @@ def kzg_commit(srs: SRS, coeffs_mont, basis: str = "monomial"):
 
 def kzg_commit_batch(srs: SRS, coeffs_list, basis: str = "monomial"):
     """Commit to several columns over the same basis: device-size columns go
-    COMMIT_GROUP at a time through one batched MSM (one K3 launch each)."""
+    commit_group(n) at a time through one batched MSM (one K3 launch each)."""
     coeffs_list = list(coeffs_list)
     if not coeffs_list:
         return []
@@ -302,8 +311,9 @@ def kzg_commit_batch(srs: SRS, coeffs_list, basis: str = "monomial"):
 
     base = srs.dev_powers() if basis == "monomial" else srs.dev_lagrange()
     out = []
-    for i in range(0, len(coeffs_list), COMMIT_GROUP):
-        grp = coeffs_list[i : i + COMMIT_GROUP]
+    group = commit_group(n_max)
+    for i in range(0, len(coeffs_list), group):
+        grp = coeffs_list[i : i + group]
         out.extend(msm_v2_host_batch(base[:n_max], [fo.from_mont(FR_LIMB, c) for c in grp]))
     return out
 

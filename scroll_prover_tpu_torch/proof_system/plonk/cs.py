@@ -100,12 +100,19 @@ class ConstraintSystem:
         cycle SPLICE (keygen._build_next) — applying the same transposition
         twice would undo it. This lets circuits register data-dependent copies
         inside assign(), which runs once in keygen and again in prove()."""
-        key = (a, a_row, b, b_row)
-        if key in self._copy_set:
+        # keyed by the columns' (kind, index): a gadget pass registers
+        # millions of copies, and a ColumnRef's generated hash is Python code
+        ka, kb = (a.kind, a.index), (b.kind, b.index)
+        copy_set = self._copy_set
+        n_before = len(copy_set)
+        copy_set.add((ka, a_row, kb, b_row))
+        if len(copy_set) == n_before:
             return
-        self._copy_set.add(key)
-        self.enable_permutation(a)
-        self.enable_permutation(b)
+        perm = self.__dict__.get("_perm_keys")
+        if perm is None or ka not in perm or kb not in perm:
+            self.enable_permutation(a)
+            self.enable_permutation(b)
+            self._perm_keys = {(c.kind, c.index) for c in self.perm_columns}
         self.copies.append(((a, a_row), (b, b_row)))
 
     # -- shape ------------------------------------------------------------
@@ -149,6 +156,4 @@ class Circuit:
 
 
 def empty_assignment(num_cols: int, n: int) -> np.ndarray:
-    a = np.empty((num_cols, n), dtype=object)
-    a[:] = 0
-    return a
+    return np.zeros((num_cols, n), dtype=object)  # python int 0 in every cell

@@ -228,13 +228,16 @@ def keygen(srs: SRS, k: int, circuit: Circuit, instance=None):
 
 
 def _build_next(cs: ConstraintSystem, n: int) -> np.ndarray:
-    cols = {c: j for j, c in enumerate(cs.perm_columns)}
+    # columns by (kind, index) and the array through a memoryview: a layer
+    # circuit splices millions of copies, one Python step each
+    cols = {(c.kind, c.index): j * n for j, c in enumerate(cs.perm_columns)}
     m = len(cs.perm_columns)
     nxt = np.arange(m * n, dtype=np.int64)
+    mv = memoryview(nxt)
     for (ca, ra), (cb, rb) in cs.copies:
-        a = cols[ca] * n + ra
-        b = cols[cb] * n + rb
-        nxt[a], nxt[b] = nxt[b], nxt[a]
+        a = cols[ca.kind, ca.index] + ra
+        b = cols[cb.kind, cb.index] + rb
+        mv[a], mv[b] = mv[b], mv[a]
     return nxt
 
 

@@ -666,8 +666,13 @@ def _build_quotient(
     )
     by_kind = zpolys = None
     h_coeffs = dom.intt_extended(acc_ext)
+    acc_ext = None
+    # the extended domain's tables go until the next prove rebuilds them,
+    # and the pieces leave the extended buffer: at k = 23 the tables and
+    # the pieces beyond the bound are 6 GiB that the commits after need
+    dom.release_extended(h_coeffs.device)
     # pieces beyond the degree bound are identically zero (see _n_h)
-    return [h_coeffs[a * n : (a + 1) * n] for a in range(_n_h(cs, dom))]
+    return [h_coeffs[a * n : (a + 1) * n].clone() for a in range(_n_h(cs, dom))]
 
 
 def _quotient_plan(cs, by_kind, zpolys, pk, lact_poly):
@@ -711,24 +716,30 @@ def _static_uses(cs, zpolys) -> dict:
 
 
 # device memory the coset walk keeps free for its transients (an NTT
-# group's working set, the terms of one constraint) when it sizes its cache
+# group's working set, the terms of one constraint) when it sizes its cache:
+# COSET_RESERVE_COLS columns of n rows, at least COSET_RESERVE_BYTES (the
+# transients grow with n: at k = 23 a reserve of 8 GiB ran out in the
+# first coset)
 COSET_RESERVE_BYTES = 8 << 30
+COSET_RESERVE_COLS = 32
 
 
 def _coset_cache_cap(n: int, n_cols: int, device):
     """Columns one coset's cache may hold: SPT_COSET_CACHE_COLS when set;
     else on the card the plan's n_cols, limited to what the card's total
-    memory holds beyond the tensors allocated now and COSET_RESERVE_BYTES
-    (so the cap depends on the prove, not on memory held outside it); else
-    (the CPU) no cap."""
+    memory holds beyond the tensors allocated now and the reserve (so the
+    cap depends on the prove, not on memory held outside it); else (the
+    CPU) no cap."""
     device = resolve_device(device)
     env = os.environ.get("SPT_COSET_CACHE_COLS")
     if env:
         return int(env)
     if device.type != "cuda":
         return None
+    col_bytes = n * N_LIMBS * 4
+    reserve = max(COSET_RESERVE_BYTES, COSET_RESERVE_COLS * col_bytes)
     room = torch.cuda.get_device_properties(device).total_memory - torch.cuda.memory_allocated(device)
-    return max(0, min(n_cols, (room - COSET_RESERVE_BYTES) // (n * N_LIMBS * 4)))
+    return max(0, min(n_cols, (room - reserve) // col_bytes))
 
 
 def _quotient_cosets(

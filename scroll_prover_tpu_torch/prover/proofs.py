@@ -2,8 +2,9 @@
 
 Wire shapes mirror the reference's chunk-proof JSON (SURVEY.md section 2.4:
 `{protocol(b64), proof(b64), instances(b64, 32B BE words), vk(b64),
-chunk_info, git_version, row_usages}`). The chunk side only: the batch and
-bundle wrappers come with the aggregator.
+chunk_info, git_version, row_usages}`) and the batch wrapper
+(`BatchProofV2.inner.batch_hash` — SURVEY.md section 2.3). The bundle
+wrapper comes with the bundle layers.
 """
 from __future__ import annotations
 
@@ -103,3 +104,63 @@ class ChunkProofV2:
     @classmethod
     def from_file(cls, path: str) -> "ChunkProofV2":
         return cls.from_json(read_json(path))
+
+
+@dataclass
+class BatchProofInner:
+    layers: list[ProofPayload]  # [layer3, layer4]
+    batch_hash: bytes
+    batch_header: object = None
+    blob_bytes: bytes | None = None  # DA payload (verifier recomputes the
+    # in-circuit blob-coefficient digest from these bytes)
+    chunk_infos: list = None  # ChunkInfo per aggregated chunk (verifier
+    # re-derives blob payload segments + data-hash binding from these)
+
+    @property
+    def proof(self) -> bytes:
+        return self.layers[-1].proof
+
+
+@dataclass
+class BatchProofV2:
+    inner: BatchProofInner
+
+    def to_json(self) -> dict:
+        return {
+            "layers": [l.to_json() for l in self.inner.layers],
+            "batch_hash": "0x" + self.inner.batch_hash.hex(),
+            "batch_header": self.inner.batch_header.to_json()
+            if self.inner.batch_header is not None
+            else None,
+            "blob_bytes": "0x" + self.inner.blob_bytes.hex()
+            if self.inner.blob_bytes is not None
+            else None,
+            "chunk_infos": [ci.to_json() for ci in self.inner.chunk_infos]
+            if self.inner.chunk_infos is not None
+            else None,
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "BatchProofV2":
+        from ..aggregator.batch_header import BatchHeader
+
+        return cls(
+            BatchProofInner(
+                layers=[ProofPayload.from_json(l) for l in d["layers"]],
+                batch_hash=bytes.fromhex(d["batch_hash"][2:]),
+                batch_header=BatchHeader.from_json(d["batch_header"])
+                if d.get("batch_header")
+                else None,
+                blob_bytes=bytes.fromhex(d["blob_bytes"][2:])
+                if d.get("blob_bytes")
+                else None,
+                chunk_infos=[
+                    ChunkInfo.from_json(ci) for ci in d["chunk_infos"]
+                ]
+                if d.get("chunk_infos")
+                else None,
+            )
+        )
+
+    def dump(self, dir_path: str, name: str) -> str:
+        return dump_as_json(dir_path, f"full_proof_batch_{name}", self.to_json())

@@ -1,10 +1,11 @@
-"""ChunkProver / ChunkVerifier + params io (the chunk side of the facade).
+"""ChunkProver / ChunkVerifier / BatchProver / BatchVerifier + params io.
 
 API parity with the reference prover crate (SURVEY.md section 2.3):
 `ChunkProver::from_params_and_assets` + `gen_halo2_chunk_proof(task, id,
 inner_id, output_dir)` (integration/src/prove.rs:30,38), the verifier
-counterpart (prove.rs:50-53), `Prover::load_params_map(dir, degrees)`
-(bin/src/trace_prover.rs:35-36), CHUNK_PROVER_DEGREES.
+counterparts (prove.rs:50-53, 75-80), `Prover::load_params_map(dir,
+degrees)` (bin/src/trace_prover.rs:35-36), CHUNK/BATCH_PROVER_DEGREES.
+The bundle layers (5 and 6) come with the EVM verifier.
 
 Chunk pipeline (reference stack 3.1): witness -> ScrollSuperCircuit inner
 proof -> layer1 compression -> layer2 compression (thin) = chunk proof.
@@ -58,6 +59,7 @@ def _mo_tag(shape_id: str, mo: str) -> str:
 
 
 CHUNK_PROVER_DEGREES = [INNER_DEGREE, LAYER_DEGREES[1], LAYER_DEGREES[2]]
+BATCH_PROVER_DEGREES = [LAYER_DEGREES[3], LAYER_DEGREES[4], LAYER_DEGREES[5], LAYER_DEGREES[6]]
 
 
 def _generate_srs(k: int, device) -> kzg.SRS:
@@ -98,6 +100,11 @@ class _KeygenCache:
         key = f"{shape_id}_k{k}"
         if key not in self._cache:
             pk, vk = keygen(srs, k, circuit)
+            # the copies were keygen's input (its permutation is in pk now):
+            # a layer circuit's are millions of tuples that the vk would
+            # otherwise hold, and every later collection would walk, for as
+            # long as the registry keeps it
+            vk.cs.copies, vk.cs._copy_set = [], set()
             register_vk(vk, self.assets_dir)
             self._cache[key] = (pk, vk)
         return self._cache[key]
@@ -201,6 +208,7 @@ class ChunkProver:
         log.info("chunk %s: layer%d keygen done", name, layer)
         ci = comp.instance_for()
         proof_c = plonk_prove(srs_c, pk_c, comp, ci, seed=seed, multiopen=mo)
+        vk_c.domain.release()  # rebuilt by the next prove of this shape
         log.info("chunk %s: layer%d proved", name, layer)
         payload = ProofPayload(
             proof=proof_c,
@@ -293,6 +301,328 @@ class ChunkVerifier:
         if passthrough[7:9] != [(dh >> 128) % FR_MOD, dh & ((1 << 128) - 1)]:
             log.error("chunk data_hash/chunk_info mismatch")
             return False
+        return True
+
+
+# chunk layer2 instance offsets: [12 accumulator cells || chain_id,
+# prev_hi, prev_lo, post_hi, post_lo, withdraw_hi, withdraw_lo, dh_hi,
+# dh_lo] (VerifierCircuit pass-through of zkevm.chunk_instance)
+_L2_CHAIN_ID = ACC_CELLS
+_L2_PREV = ACC_CELLS + 1
+_L2_POST = ACC_CELLS + 3
+_L2_DH = ACC_CELLS + 7
+
+# batch layer4 instance offsets: [12 fresh acc || digest || batch_hash
+# hi/lo, z hi/lo, y hi/lo || chain_id, first_prev hi/lo, last_post hi/lo,
+# per-chunk dh...] (VerifierCircuit pass-through of the layer3
+# AggregationCircuit instance)
+_L4_DIGEST = ACC_CELLS
+_L4_BH = ACC_CELLS + 1
+_L4_Z = ACC_CELLS + 3
+_L4_Y = ACC_CELLS + 5
+_L4_BLOB = ACC_CELLS + 7      # in-circuit blob-coefficient digest cell
+_L4_CHAIN_ID = ACC_CELLS + 8
+_L4_FIRST_PREV = ACC_CELLS + 9
+_L4_LAST_POST = ACC_CELLS + 11
+_L4_DH0 = ACC_CELLS + 13
+
+
+def _chunk_chain_links(n: int) -> list[tuple[int, int, int, int]]:
+    """post_state_root(i) == prev_state_root(i+1), hi and lo halves."""
+    links = []
+    for i in range(n - 1):
+        links.append((i, _L2_POST, i + 1, _L2_PREV))
+        links.append((i, _L2_POST + 1, i + 1, _L2_PREV + 1))
+    return links
+
+
+def _batch_expose(n: int) -> list[tuple[int, int]]:
+    """Statement cells the batch PI carries: chain id, boundary state
+    roots, and every chunk's data hash (bound to the header's data_hash
+    by the verifier via keccak)."""
+    exp = [
+        (0, _L2_CHAIN_ID),
+        (0, _L2_PREV), (0, _L2_PREV + 1),
+        (n - 1, _L2_POST), (n - 1, _L2_POST + 1),
+    ]
+    for i in range(n):
+        exp.append((i, _L2_DH))
+        exp.append((i, _L2_DH + 1))
+    return exp
+
+
+def _header_context(header) -> list[int]:
+    """[batch_hash hi/lo, z hi/lo, y hi/lo]: the header values the layer-3
+    circuit binds in its digest and exposes after it."""
+    bh = header.batch_hash()
+    z, y = header.blob_data_proof
+    m = (1 << 128) - 1
+    return [
+        int.from_bytes(bh[:16], "big"), int.from_bytes(bh[16:], "big"),
+        z >> 128, z & m, y >> 128, y & m,
+    ]
+
+
+class BatchProver:
+    """layer3 AggregationCircuit (in-circuit verification of every chunk
+    layer2 SNARK and of the blob's evaluation at the header's (z, y)) +
+    layer4 verifier-compression -> BatchProofV2 (reference prove.rs:57-87,
+    SURVEY.md section 3.2). Runs on `device` (the card unless the caller
+    passes device="cpu"); an SRS the params map lacks is generated there."""
+
+    def __init__(self, params_map: dict[int, kzg.SRS], assets_dir: str = "", device=None):
+        self.device = resolve_device(device)
+        self.params_map = params_map
+        self.assets_dir = assets_dir
+        self._kg = _KeygenCache(assets_dir)
+
+    @classmethod
+    def from_params_and_assets(cls, params_map, assets_dir: str = "", device=None) -> "BatchProver":
+        return cls(params_map, assets_dir, device)
+
+    _srs_for = ChunkProver._srs_for
+
+    def _prove_circuit(
+        self, circuit, shape_id: str, transcript_cls=None,
+        multiopen: str = "gwc", seed: bytes | None = None,
+    ):
+        """min_k, the SRS, keygen (cached per shape), the host instance and
+        the prove of one layer circuit. A fixed `seed` (deterministic
+        blinding) is for tests only. Returns (payload, vk)."""
+        from ..proof_system.transcript import PoseidonTranscript
+
+        layer = shape_id.split("_")[0]
+        k = circuit.min_k()
+        log.info("batch: %s circuit: %d rows, k=%d", layer, circuit._rows, k)
+        srs = self._srs_for(k)
+        log.info("batch: %s srs ready", layer)
+        pk, vk = self._kg.get(srs, k, circuit, _mo_tag(shape_id, multiopen))
+        log.info("batch: %s keygen done", layer)
+        inst = circuit.instance_for()
+        proof = plonk_prove(
+            srs, pk, circuit, inst,
+            transcript_cls=transcript_cls or PoseidonTranscript,
+            seed=seed, multiopen=multiopen,
+        )
+        vk.domain.release()  # rebuilt by the next prove of this shape
+        log.info("batch: %s proved", layer)
+        payload = ProofPayload(
+            proof=proof,
+            instances=inst[0],
+            protocol=protocol_from_vk(vk, len(inst[0]), multiopen=multiopen),
+            vk_id=hex(vk.transcript_repr()),
+        )
+        return payload, vk
+
+    def gen_batch_proof(self, task, output_dir: str | None = None):
+        return self._gen_batch_proof(task, output_dir)
+
+    def _gen_batch_proof(self, task, output_dir: str | None = None, seed: bytes | None = None):
+        """gen_batch_proof's body; a fixed `seed` (tests only) blinds layer
+        3 with seed + bytes([3]) and layer 4 with seed + bytes([4])."""
+        from ..aggregator.constants import MAX_AGG_SNARKS
+        from .aggregation_circuit import AggregationCircuit
+        from .proofs import BatchProofInner, BatchProofV2
+
+        header = task.batch_header
+        # chunk chaining sanity (the AggregationCircuit links also
+        # constrain the roots in-circuit)
+        infos = [p.inner.chunk_info() for p in task.chunk_proofs]
+        for a, b in zip(infos, infos[1:]):
+            assert a.post_state_root == b.prev_state_root, "chunk chain broken"
+        assert 0 < len(task.chunk_proofs) <= MAX_AGG_SNARKS
+        inners = []
+        for p in task.chunk_proofs:
+            l2 = p.inner.layers[-1]
+            vk2 = load_vk(l2.vk_id, self.assets_dir)
+            assert vk2 is not None, f"chunk layer2 vk {l2.vk_id} unavailable"
+            inners.append((vk2, l2.proof, list(l2.instances)))
+        n = len(inners)
+        context = _header_context(header)
+        log.info("batch %d: layer3 aggregation over %d chunks", header.batch_index, n)
+        # layer3: one VerifierGadget per chunk layer2 SNARK, accumulators
+        # mu-folded, state-root chaining linked in-circuit, statement cells
+        # exposed in the PI (reference BatchCircuit semantics, SURVEY.md
+        # section 3.2); blob consistency: the barycentric evaluation of the
+        # blob polynomial at the header's (z, y) is constrained in-circuit
+        # and the coefficient digest exposed; SPT_BLOB_WIDTH shrinks the
+        # domain for test tiers only
+        blob_width = int(os.environ.get("SPT_BLOB_WIDTH", "4096"))
+        mo = _ladder_multiopen()
+        inner_mos = {
+            p.inner.layers[-1].protocol.get("multiopen", "gwc")
+            for p in task.chunk_proofs
+        }
+        assert len(inner_mos) == 1, f"mixed chunk multiopen schemes: {inner_mos}"
+        layer3, vk3 = self._prove_circuit(
+            AggregationCircuit(
+                inners, context, inners_have_acc=True,
+                links=_chunk_chain_links(n),
+                expose=_batch_expose(n),
+                blob_bytes=task.blob_bytes,
+                blob_width=blob_width,
+                inner_multiopen=inner_mos.pop(),
+            ),
+            f"layer3_{'_'.join(hex(vk.transcript_repr())[:10] for vk, _, _ in inners)}",
+            multiopen=mo,
+            seed=None if seed is None else seed + bytes([3]),
+        )
+        # layer4: in-circuit verification of layer3 with its accumulator
+        # folded forward, deferred pairing exposed as the fresh 12 cells
+        layer4, _vk4 = self._prove_circuit(
+            VerifierCircuit(
+                vk3, layer3.proof, layer3.instances, inner_has_acc=True,
+                inner_multiopen=mo,
+            ),
+            f"layer4_{hex(vk3.transcript_repr())[:18]}",
+            multiopen=mo,
+            seed=None if seed is None else seed + bytes([4]),
+        )
+        proof = BatchProofV2(
+            BatchProofInner(
+                layers=[layer3, layer4],
+                batch_hash=header.batch_hash(),
+                batch_header=header,
+                blob_bytes=task.blob_bytes,
+                chunk_infos=infos,
+            )
+        )
+        if output_dir:
+            proof.dump(output_dir, str(header.batch_index))
+        return proof
+
+
+class BatchVerifier:
+    def __init__(self, params_map: dict[int, kzg.SRS], assets_dir: str = "", device=None):
+        self.device = resolve_device(device)
+        self.params_map = params_map
+        self.assets_dir = assets_dir
+        self._kg = _KeygenCache(assets_dir)
+
+    @classmethod
+    def from_params_and_assets(cls, params_map, assets_dir: str = "", device=None) -> "BatchVerifier":
+        return cls(params_map, assets_dir, device)
+
+    _srs_for = ChunkProver._srs_for
+
+    def _verify_layer(
+        self, payload: ProofPayload, circuit=None, transcript_cls=None,
+        folded_acc: bool = False,
+    ) -> bool:
+        from ..proof_system.transcript import PoseidonTranscript
+
+        k = payload.protocol["domain"]["k"]
+        srs = self._srs_for(k)
+        vk = load_vk(payload.vk_id, self.assets_dir)
+        if vk is None and circuit is not None:
+            _pk, vk = self._kg.get(srs, k, circuit, f"verify_{payload.vk_id}")
+        if vk is None:
+            log.error("vk %s unavailable; rejecting (fail closed)", payload.vk_id)
+            return False
+        if hex(vk.transcript_repr()) != payload.vk_id:
+            log.error("vk mismatch")
+            return False
+        fold = None
+        if folded_acc:
+            try:
+                fold = acc_from_limbs(list(payload.instances[:ACC_CELLS]))
+            except AssertionError:
+                log.error("accumulator cells malformed")
+                return False
+        return plonk_verify(
+            srs, vk, [payload.instances], payload.proof,
+            transcript_cls=transcript_cls or PoseidonTranscript,
+            fold_accumulator=fold,
+            multiopen=payload.protocol.get("multiopen", "gwc"),
+        )
+
+    def verify_batch_proof(self, proof) -> bool:
+        """O(1) fully-recursive verification: ONE layer4 SNARK check with
+        its 12-cell accumulator folded into the pairing. Layer4 verified
+        layer3 in-circuit; layer3 (AggregationCircuit) verified EVERY chunk
+        layer2 SNARK in-circuit and folded their accumulators — so this
+        single check transitively attests to every chunk ladder down to the
+        inner super-circuit proofs (reference BatchVerifier semantics,
+        prove.rs:75-80)."""
+        from ..hashes.keccak import keccak256
+
+        l3, l4 = proof.inner.layers
+        if list(l4.instances[ACC_CELLS:]) != list(l3.instances[ACC_CELLS:]):
+            log.error("layer4 pass-through mismatch")
+            return False
+        if not self._verify_layer(l4, folded_acc=True):
+            log.error("layer4 verification failed")
+            return False
+        header = proof.inner.batch_header
+        if header is not None:
+            inst = list(l4.instances)
+            bh = header.batch_hash()
+            if bh != proof.inner.batch_hash:
+                log.error("batch hash mismatch")
+                return False
+            if inst[_L4_BH:_L4_BH + 6] != _header_context(header):
+                log.error("layer3 header binding mismatch")
+                return False
+            # blob byte binding: the in-circuit coefficient digest must be
+            # reproducible from the ACTUAL blob bytes (fail-closed — a
+            # proof without blob bytes does not verify)
+            if proof.inner.blob_bytes is None:
+                log.error("batch proof missing blob bytes")
+                return False
+            blob_width = int(os.environ.get("SPT_BLOB_WIDTH", "4096"))
+            from .aggregation_circuit import AggregationCircuit as _AC
+
+            want_blob = _AC.host_blob_digest(proof.inner.blob_bytes, blob_width)
+            if inst[_L4_BLOB] != want_blob:
+                log.error("blob coefficient digest mismatch")
+                return False
+            # blob payload <-> chunk statement binding: decode the blob
+            # envelope, slice the per-chunk tx-byte segments, and require
+            # each to equal the declared chunk's payload whose data_hash
+            # is the exposed (in-circuit-verified) statement cell — so a
+            # blob carrying different L2 data than the proven chunks fails
+            # verification even though both are internally consistent
+            from ..aggregator.batch_data import BatchData as _BD
+            from ..aggregator.batch_data import decode_blob_bytes
+
+            infos = proof.inner.chunk_infos
+            if infos is None:
+                log.error("batch proof missing chunk infos")
+                return False
+            try:
+                bd = _BD.parse(decode_blob_bytes(proof.inner.blob_bytes))
+            except (AssertionError, ValueError) as e:
+                log.error("blob payload malformed: %s", e)
+                return False
+            if bd.num_valid_chunks != len(infos):
+                log.error("blob chunk count != aggregated chunk count")
+                return False
+            dh_pairs = list(zip(inst[_L4_DH0::2], inst[_L4_DH0 + 1::2]))
+            if len(dh_pairs) < len(infos):
+                log.error("fewer exposed data hashes than chunks")
+                return False
+            for i, ci in enumerate(infos):
+                if bd.chunk_data[i] != bytes(ci.tx_bytes):
+                    log.error("blob payload segment %d != chunk tx bytes", i)
+                    return False
+                dh = int(ci.data_hash, 16)
+                if dh_pairs[i] != (dh >> 128, dh & ((1 << 128) - 1)):
+                    log.error("chunk %d data_hash != exposed statement", i)
+                    return False
+            # the exposed per-chunk data hashes must reproduce the header's
+            # data_hash = keccak(dh_0 || ... || dh_{n-1}) — this ties the
+            # header to the statements whose proofs were verified in-circuit
+            dh_cells = inst[_L4_DH0:]
+            if len(dh_cells) < 2 or len(dh_cells) % 2:
+                log.error("malformed exposed data-hash cells")
+                return False
+            preimage = b"".join(
+                ((hi << 128) | lo).to_bytes(32, "big")
+                for hi, lo in zip(dh_cells[0::2], dh_cells[1::2])
+            )
+            if keccak256(preimage) != header.data_hash:
+                log.error("exposed chunk data hashes != header data_hash")
+                return False
         return True
 
 

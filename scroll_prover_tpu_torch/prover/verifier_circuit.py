@@ -20,6 +20,8 @@ the whole chain.
 from __future__ import annotations
 
 import gc
+import logging
+import time
 
 from ..fields.bn254 import FR_MOD
 from ..gadgets.builder import Builder
@@ -38,6 +40,11 @@ from .compression import _canonical_k
 
 ACC_CELLS = 12
 LOOKUP_BITS = 12
+# rows of the tables a layer's recording pass starts with (they grow by
+# doubling as the program reaches them)
+RECORD_ROWS = 1 << 20
+
+log = logging.getLogger(__name__)
 
 
 class _Sink:
@@ -49,8 +56,77 @@ _SINK = _Sink()
 
 
 class _SinkCols:
+    """Columns that discard what is written: a counting pass writes cells
+    as cols[i][r] or cols[i, r]."""
+
     def __getitem__(self, i):
         return _SINK
+
+    def __setitem__(self, k, v):
+        pass
+
+
+def recording_pass(circuit):
+    """min_k()'s pass of a layer circuit's gadget program (`circuit._run`),
+    written into tables that grow with it: the program does not depend on
+    n, so assign() takes its assignment from this pass instead of running
+    it a second time. Returns (the program's outputs, the record: tables,
+    the copies the pass registered, outputs)."""
+    cs = ConstraintSystem()
+    circuit.configure(cs)
+    n_copies = len(cs.copies)
+    out = circuit._run(cs, empty_assignment(cs.num_fixed, RECORD_ROWS),
+                       empty_assignment(cs.num_advice, RECORD_ROWS), 1 << 30)
+    b = circuit.b
+    record = (b.fixed, b.adv, cs.copies[n_copies:], out)
+    b.fixed = b.adv = None  # the record holds the tables now
+    return out, record
+
+
+def fit_record(record, n: int):
+    """The record with its tables made n rows long (every row the pass
+    wrote lies below n)."""
+    fixed, adv, copies, out = record
+    tables = []
+    for t in (fixed, adv):
+        if t.shape[1] != n:
+            m = min(n, t.shape[1])
+            fitted = empty_assignment(t.shape[0], n)
+            fitted[:, :m] = t[:, :m]
+            t = fitted
+        tables.append(t)
+    return tables[0], tables[1], copies, out
+
+
+def replay_record(cs, record, n: int, tag: str):
+    """assign()'s tables and program outputs from min_k()'s record (None
+    when there is none for n): its copies are registered on `cs` in the
+    pass's order, at once when `cs` holds none yet."""
+    if record is None or record[0].shape[1] != n:
+        return None
+    t0 = time.time()
+    log.info("%s assignment replay start", tag)
+    fixed, adv, copies, out = record
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        if cs.copies:
+            for (a, ra), (b, rb) in copies:
+                cs.copy(a, ra, b, rb)
+        else:
+            perm = {(c.kind, c.index) for c in cs.perm_columns}
+            for (a, _ra), (b, _rb) in copies:
+                if (a.kind, a.index) not in perm or (b.kind, b.index) not in perm:
+                    cs.enable_permutation(a)
+                    cs.enable_permutation(b)
+                    perm.update(((a.kind, a.index), (b.kind, b.index)))
+            cs._copy_set.update(((a.kind, a.index), ra, (b.kind, b.index), rb) for (a, ra), (b, rb) in copies)
+            cs.copies.extend(copies)
+    finally:
+        if collecting:
+            gc.enable()
+    log.info("%s assignment replay done: %d copies, %.1fs", tag, len(copies), time.time() - t0)
+    return fixed, adv, out
 
 
 class VerifierCircuit(Circuit):
@@ -71,6 +147,7 @@ class VerifierCircuit(Circuit):
         if inner_has_acc:
             assert len(self.inner_instances) >= ACC_CELLS
         self._min_k: int | None = None
+        self._record = None  # min_k()'s pass, which assign() takes its tables from
         self._assign_cache: dict[int, dict] = {}
 
     # -- layout ------------------------------------------------------------
@@ -131,14 +208,11 @@ class VerifierCircuit(Circuit):
 
     def min_k(self) -> int:
         if self._min_k is None:
-            cs = ConstraintSystem()
-            self.configure(cs)
-            n_copies = len(cs.copies)
-            b, vg, _l, _r, _i = self._run(cs, _SinkCols(), _SinkCols(), 1 << 30)
-            del cs.copies[n_copies:]
+            (b, vg, _l, _r, _i), record = recording_pass(self)
             rows = max(b.rows_used(), vg.transcript_rows, 1 << LOOKUP_BITS)
             self._rows = rows
             self._min_k = _canonical_k(max((rows + 64).bit_length(), 8))
+            self._record = fit_record(record, 1 << self._min_k)
         return self._min_k
 
     def assign(self, cs: ConstraintSystem, n: int, instance):
@@ -150,9 +224,14 @@ class VerifierCircuit(Circuit):
         # drop the duplicates this run registers
         copies_start = len(cs.copies)
         had_copies = getattr(cs, "_vc_copies_done", False)
-        fixed = empty_assignment(cs.num_fixed, n)
-        adv = empty_assignment(cs.num_advice, n)
-        b, vg, lhs, rhs, inst_cells = self._run(cs, fixed, adv, n)
+        replayed = replay_record(cs, self._record, n, "verifier-gadget")
+        self._record = None
+        if replayed is not None:
+            fixed, adv, (_b, _vg, lhs, rhs, inst_cells) = replayed
+        else:
+            fixed = empty_assignment(cs.num_fixed, n)
+            adv = empty_assignment(cs.num_advice, n)
+            _b, _vg, lhs, rhs, inst_cells = self._run(cs, fixed, adv, n)
         limb_cells = [*lhs.x.limbs, *lhs.y.limbs, *rhs.x.limbs, *rhs.y.limbs]
         assert len(limb_cells) == ACC_CELLS
         for i, c in enumerate(limb_cells):

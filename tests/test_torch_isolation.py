@@ -19,6 +19,7 @@ from scroll_prover_tpu_torch.ops.ntt_tile import TiledDomain
 from scroll_prover_tpu_torch.ops.poseidon_dev import PoseidonDev
 from scroll_prover_tpu_torch.proof_system import kzg
 from scroll_prover_tpu_torch.proof_system.plonk import prover as tprover
+from scroll_prover_tpu_torch.prover import BatchProver, BatchVerifier
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -65,7 +66,7 @@ def test_chip_smoke_refuses_without_cuda():
 @pytest.mark.parametrize(
     "entry",
     ["generate", "generate_fast", "load", "srs_from_numpy", "tiled_domain", "fast_domain", "poseidon_dev",
-     "prove", "coset_cache_cap"],
+     "prove", "coset_cache_cap", "batch_prover", "batch_verifier"],
 )
 def test_entry_points_refuse_silent_cpu(entry, tmp_path, monkeypatch):
     """Called without device="cpu" on a machine with no card, an entry point
@@ -87,6 +88,8 @@ def test_entry_points_refuse_silent_cpu(entry, tmp_path, monkeypatch):
         # prove (whose quotient streams the cosets) runs on its SRS's device
         "prove": lambda: _prove_on_cuda_srs(),
         "coset_cache_cap": lambda: tprover._coset_cache_cap(1 << 20, 600, None),
+        "batch_prover": lambda: BatchProver({}),
+        "batch_verifier": lambda: BatchVerifier({}),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -118,6 +121,11 @@ def test_every_module_is_listed():
     names = [m.name for m in pkgutil.walk_packages(scroll_prover_tpu_torch.__path__, "scroll_prover_tpu_torch.")]
     assert "scroll_prover_tpu_torch.proof_system.plonk.prover" in names
     assert "scroll_prover_tpu_torch.ops.cuda_lib" in names
+    for mod in ("aggregator", "aggregator.constants", "aggregator.blob", "aggregator.batch_data",
+                "aggregator.batch_header", "aggregator.zstd_decoder", "aggregator.circuits",
+                "curves.bls12_381", "curves.bls12_381_pairing", "gadgets.blob_eval", "native.zstd_codec",
+                "prover.aggregation_circuit", "prover.proofs", "prover.provers", "integration.prove"):
+        assert f"scroll_prover_tpu_torch.{mod}" in names, mod
 
 
 @pytest.mark.parametrize("kernel", ["K2", "K6", "K7", "K8", "K7 tile", "K8 tile", "K7 misaligned", "K8 misaligned"])
@@ -168,11 +176,17 @@ import scroll_prover_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 from scroll_prover_tpu_torch.trie import zktrie
+from scroll_prover_tpu_torch.native import zstd_codec
+from scroll_prover_tpu_torch.aggregator import BatchData, decode_blob_bytes, get_blob_bytes
 from scroll_prover_tpu_torch.l2types import BlockTrace
 from scroll_prover_tpu_torch.witness import chunk_trace_to_witness_block
 from scroll_prover_tpu_torch.zkevm import ScrollSuperCircuit
 from tests.torch_trace_cases import trace_dict
 zktrie.native_available()
+zstd_codec._BUILD_DIR = sys.argv[2]  # a fresh build, watched
+zstd_codec.zstd_available()
+raw = BatchData.new(0, []).get_batch_data_bytes() + b"x" * 100
+assert decode_blob_bytes(get_blob_bytes(raw)) == raw
 wb = chunk_trace_to_witness_block([BlockTrace.from_json(trace_dict())])
 ScrollSuperCircuit.new_from_block(wb).min_k()
 bad = [e for e in seen if e[1].startswith(jax_dir)]
@@ -181,15 +195,16 @@ assert not bad, bad
 """
 
 
-def test_port_reads_and_builds_nothing_of_the_jax_package():
-    """Importing every module, building the native zktrie and making a
+def test_port_reads_and_builds_nothing_of_the_jax_package(tmp_path):
+    """Importing every module, building the native zktrie, building the
+    native zstd codec afresh and enveloping a blob with it, and making a
     witness open, spawn, create or rename nothing under scroll_prover_tpu/
     (audit hooks in a fresh interpreter)."""
     jax_dir = os.path.join(ROOT, "scroll_prover_tpu") + os.sep
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run(
-        [sys.executable, "-c", _AUDIT, jax_dir], cwd=ROOT, env=env,
+        [sys.executable, "-c", _AUDIT, jax_dir, str(tmp_path / "zstd_build")], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]

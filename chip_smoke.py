@@ -86,6 +86,21 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      launch counts of K1-K5 over this phase alone (each must be > 0); then
      K2 at every pass the phase gave it that phases 3 and 5 did not hold,
      against its plain version;
+ 6b. between layers 1 and 2 of phase 6, the EVM tail: layer 1's
+     VerifierCircuit proved again with layer 6's outer settings (the Keccak
+     transcript, GWC; seed EVM_TAIL_SEED) on phase 6's keys and its recorded
+     assignment, verified on the host with its 12 accumulator cells folded,
+     a tampered proof rejected there; the proof wrapped as the last layer of
+     a BundleProof, BatchProver._dump_release_artifacts writing the release
+     files (the full in-bytecode verifier, evm_verifier.bin and .yul) into
+     a temporary directory, and BatchProver.evm_verify_bundle running the
+     verifier in the port's EVM: accepted with gas > 100,000, and a revert
+     (not gas) for one flipped proof byte and for one changed instance
+     cell; the proof's and the bytecode's sha256 and the gas equal to
+     EVM_TAIL_PROOF_SHA256, EVM_VERIFIER_SHA256 and EVM_TAIL_GAS; the sizes,
+     the seconds of each step and each EVM call, the peak device memory and
+     the launches of K1, K1as, K2, K3 and K4 over the step alone (each must
+     be > 0; phase 6's counts leave them out);
   7. the batch at the package's defaults (blob width 4096, one builder
      lane, SHPLONK, the real BLS12-381 blob commitment), on a card freed
      of phase 6's prover: the blob of phase 6's chunk (get_blob_from_chunks,
@@ -179,6 +194,19 @@ LADDER_SEED = b"chip-smoke-ladder"
 LADDER_CHAIN_ID = 7  # BenchCircuit copies instance cell 0 into a column whose lookup table is 0..8191
 LAYER1_PROOF_SHA256 = "9c855d50bc1fa79cf42457a19935cf0a0c1d249f2a8fa53e8b8dcd934d387b6f"
 LAYER2_PROOF_SHA256 = "7bbecf617f32ba33ccb62e581418774542e596a9003016cb6a0f476793191283"
+EVM_TAIL_PATH = ("K1", "K1as", "K2", "K3", "K4")  # phase 6b
+# phase 6b: layer 1 proved again with the EVM-facing settings (the Keccak
+# transcript, GWC; seed EVM_TAIL_SEED), the sha256 of that proof and of the
+# generated verifier's deployment bytecode (evm_verifier.bin), and the gas
+# the port's interpreter charges for the accepted call, taken on the card:
+# they change only when the prover's output, the verifier gadget, the layer
+# circuit, phase 5's chunk, the verifier generator or the interpreter's gas
+# schedule is meant to change (the bytecode depends on layer 1's vk and the
+# SRS, not on the proof)
+EVM_TAIL_SEED = b"chip-smoke-evm-tail"
+EVM_TAIL_PROOF_SHA256 = "7b5a38f603a45d1bab9a09026b1e630780430638663ae27dc033647dc2a080c4"
+EVM_VERIFIER_SHA256 = "94540b4140d0d30ca548c4c6120abe358006326c5052fd41b3742ddcfda5f31e"
+EVM_TAIL_GAS = 842_106
 BATCH_PATH = ("K1", "K1as", "K2", "K3", "K4", "K5")  # phase 7
 # sha256 of the batch's layer-3 and layer-4 proofs over phase 6's chunk
 # (seeds BATCH_SEED + layer number, SHPLONK), by the blob's envelope byte:
@@ -1542,15 +1570,22 @@ def chunk_kernel_checks(seen, dev, gen, where: str = "the chunk") -> dict:
 
 
 def counted(keys, fn):
-    """Run fn with the launch counts of `keys` set to 0 just before; returns
-    (fn's result, {key: launches during fn}, {key: {mode: launches}} for
-    K1's modes). Fails if one stayed at 0."""
+    """Run fn with the launch counts of `keys` set to 0 just before and read
+    just after; then the counts found before are put back, so that a phase
+    around a counted step leaves the step's launches out. Returns (fn's
+    result, {key: launches during fn}, {key: {mode: launches}} for K1's
+    modes). Fails if one stayed at 0."""
     counters = {key: wrapper(key) for key in keys}
+    saved = {key: (c.launches, dict(getattr(c, "by_mode", {}))) for key, c in counters.items()}
     for c in counters.values():
         reset_counts(c)
     out = fn()
     launches = {key: c.launches for key, c in counters.items()}
     by_mode = {key: dict(c.by_mode) for key, c in counters.items() if hasattr(c, "by_mode")}
+    for key, c in counters.items():
+        c.launches = saved[key][0]
+        if hasattr(c, "by_mode"):
+            c.by_mode = saved[key][1]
     missing = [key for key, v in launches.items() if not v]
     if missing:
         fail(f"the path never launched {missing}")
@@ -1572,7 +1607,8 @@ def ladder_layer(prover, prev, prev_vk, layer: int, mo: str):
     """One layer of phase 6 through the facade's own layer code
     (ChunkProver._compress_layer: min_k's recording pass, the SRS, keygen
     with the assignment's replay, the host accumulator, the prove), then
-    verify and the accumulator's pairing. Returns (payload, vk, stats)."""
+    verify and the accumulator's pairing. Returns (payload, vk, stats,
+    circuit)."""
     from scroll_prover_tpu_torch.proof_system.plonk.verifier import acc_from_limbs, check_accumulator, verify
     from scroll_prover_tpu_torch.prover.verifier_circuit import ACC_CELLS
 
@@ -1628,7 +1664,133 @@ def ladder_layer(prover, prev, prev_vk, layer: int, mo: str):
         "launches": {key: wrapper(key).launches - before[key] for key in LADDER_PATH},
     }
     log(f"layer {layer}: {json.dumps(stats)}")
-    return payload, vk, stats
+    return payload, vk, stats, circ
+
+
+def evm_tail(prover, p1, vk1, circ1, dev, rows) -> dict:
+    """Phase 6b (see the module docstring): layer 1's VerifierCircuit proved
+    again with layer 6's outer settings (the Keccak transcript, GWC) on the
+    keys phase 6 made for it, verified on the host with its accumulator
+    folded, then wrapped as the last layer of a BundleProof whose release
+    artifacts BatchProver writes (the full in-bytecode verifier among them)
+    and whose verification BatchProver runs in the port's EVM. Every check
+    is fatal. Returns the step's stats."""
+    import shutil
+    import tempfile
+
+    from scroll_prover_tpu_torch.evm.interpreter import EvmRevert, deploy_and_call
+    from scroll_prover_tpu_torch.evm.full_verifier import proof_calldata
+    from scroll_prover_tpu_torch.proof_system.plonk.prover import prove
+    from scroll_prover_tpu_torch.proof_system.plonk.verifier import acc_from_limbs, verify
+    from scroll_prover_tpu_torch.proof_system.transcript import KeccakTranscript
+    from scroll_prover_tpu_torch.prover import BatchProver, BundleProof
+    from scroll_prover_tpu_torch.prover.proofs import ProofPayload
+    from scroll_prover_tpu_torch.prover.protocol import protocol_from_vk
+    from scroll_prover_tpu_torch.prover.verifier_circuit import ACC_CELLS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_step = time.perf_counter()
+    secs = {}
+    # keygen depends on neither the transcript nor the multiopen: the pk
+    # phase 6 made for layer 1 serves (no second keygen)
+    pks = [pk for pk, vk in prover._kg._cache.values() if vk is vk1]
+    if len(pks) != 1:
+        fail("phase 6b: layer 1's keys are not in the prover's keygen cache")
+    srs = prover.params_map[vk1.k]
+    inst = [list(p1.instances)]
+    fold = acc_from_limbs(inst[0][:ACC_CELLS])
+
+    def run():
+        t0 = time.perf_counter()
+        proof = prove(srs, pks[0], circ1, inst, transcript_cls=KeccakTranscript, seed=EVM_TAIL_SEED,
+                      multiopen="gwc")
+        torch.cuda.synchronize()
+        secs["prove"] = time.perf_counter() - t0
+        vk1.domain.release()  # as _compress_layer does after its prove
+        t0 = time.perf_counter()
+        ok = verify(srs, vk1, inst, proof, transcript_cls=KeccakTranscript, fold_accumulator=fold, multiopen="gwc")
+        secs["host_verify"] = time.perf_counter() - t0
+        if not ok:
+            fail("phase 6b: the Keccak/GWC layer-1 proof did not verify with its accumulator folded")
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 1
+        try:
+            rejected = not verify(srs, vk1, inst, bytes(bad), transcript_cls=KeccakTranscript, fold_accumulator=fold,
+                                  multiopen="gwc")
+        except (AssertionError, ValueError):
+            rejected = True
+        if not rejected:
+            fail("phase 6b: a tampered Keccak/GWC proof verified on the host")
+        torch.cuda.synchronize()
+        return proof
+
+    proof, launches, by_mode = counted(EVM_TAIL_PATH, run)
+    peak_dev = torch.cuda.max_memory_allocated() / 2**30
+    for key, v in launches.items():
+        rows[key]["evm_tail_launches"] = v
+    for key, modes in by_mode.items():
+        for mode, v in modes.items():
+            rows[key]["modes"][mode]["evm_tail_launches"] = v
+
+    payload = ProofPayload(proof=proof, instances=inst[0],
+                           protocol=protocol_from_vk(vk1, len(inst[0]), multiopen="gwc"),
+                           vk_id=hex(vk1.transcript_repr()))
+    bundle = BundleProof(layers=[p1, payload])
+    bp = BatchProver(prover.params_map, device=dev)
+    out_dir = tempfile.mkdtemp(prefix="spt_evm_tail_")
+    try:
+        t0 = time.perf_counter()
+        bp._dump_release_artifacts(bundle, payload, out_dir)
+        secs["gen_full_verifier"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "evm_verifier.bin"), "rb") as fh:
+            code = fh.read()
+        yul_bytes = os.path.getsize(os.path.join(out_dir, "evm_verifier.yul"))
+        t0 = time.perf_counter()
+        gas = bp.evm_verify_bundle(bundle, out_dir)
+        secs["evm_accept"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir)
+    if gas is None or gas <= 100_000:
+        fail(f"phase 6b: the EVM verifier did not accept the bundle (gas {gas})")
+    negatives = {}
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    cell = list(inst[0])
+    cell[ACC_CELLS] += 1  # the chunk instance's chain id, passed through
+    for name, calldata in (("flipped proof byte", proof_calldata(inst[0], bytes(bad))),
+                           ("changed instance cell", proof_calldata(cell, proof))):
+        t0 = time.perf_counter()
+        try:
+            got = deploy_and_call(code, calldata)
+        except EvmRevert:
+            got = None
+        secs[f"evm_{name.replace(' ', '_')}"] = time.perf_counter() - t0
+        if got is not None:
+            fail(f"phase 6b: the EVM verifier charged {got} gas for a call with a {name} instead of reverting")
+        negatives[name] = "reverted"
+    secs["step"] = time.perf_counter() - t_step
+    digests = {"proof": hashlib.sha256(proof).hexdigest(), "evm_verifier.bin": hashlib.sha256(code).hexdigest()}
+    stats = {
+        "k": vk1.k, "instances": len(inst[0]), "proof_bytes": len(proof), "bytecode_bytes": len(code),
+        "yul_bytes": yul_bytes, "gas": gas, "negatives": negatives, "sha256": digests, "seconds": secs,
+        "peak_device_gib": peak_dev,
+        "launches": launches, "k1_by_mode": by_mode,
+    }
+    log(f"phase 6b (EVM tail): {json.dumps(stats)}")
+    for what, got, pinned in (("proof", digests["proof"], EVM_TAIL_PROOF_SHA256),
+                              ("evm_verifier.bin", digests["evm_verifier.bin"], EVM_VERIFIER_SHA256),
+                              ("gas", gas, EVM_TAIL_GAS)):
+        log(f"phase 6b {what}: {got} (pinned {pinned})")
+    if digests["proof"] != EVM_TAIL_PROOF_SHA256:
+        fail("phase 6b: the Keccak/GWC layer-1 proof's bytes differ from the pinned proof")
+    if digests["evm_verifier.bin"] != EVM_VERIFIER_SHA256:
+        fail("phase 6b: the verifier's deployment bytecode differs from the pinned bytecode")
+    if gas != EVM_TAIL_GAS:
+        fail("phase 6b: the EVM verifier's gas differs from the pinned gas")
+    clock("phase 6b")
+    return stats
 
 
 def chunk_instance_of(info) -> list[int]:
@@ -1685,8 +1847,10 @@ def ladder(srs, dev, gen, rows, info, held_k2=frozenset()):
                             protocol=protocol_from_vk(vk, len(instance[0]), multiopen=mo),
                             vk_id=hex(vk.transcript_repr()))
         prover = ChunkProver(params_map={k: srs}, device=dev)
-        p1, vk1, out["layer1"] = ladder_layer(prover, prev, vk, 1, mo)
-        p2, vk2, out["layer2"] = ladder_layer(prover, p1, vk1, 2, mo)
+        p1, vk1, out["layer1"], circ1 = ladder_layer(prover, prev, vk, 1, mo)
+        out["evm_tail"] = evm_tail(prover, p1, vk1, circ1, dev, rows)
+        del circ1  # its assignment: layer 2 needs the host memory
+        p2, vk2, out["layer2"], _ = ladder_layer(prover, p1, vk1, 2, mo)
         bad = bytearray(p2.proof)
         bad[100] ^= 1
         try:

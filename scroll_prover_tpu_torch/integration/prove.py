@@ -1,9 +1,8 @@
 """Stage orchestration (reference integration/src/prove.rs):
 `prove_and_verify_chunk` (prove.rs:23), `prove_and_verify_batch` (:57),
-`get_blob_from_chunks` (:112, pads to MAX_AGG_SNARKS with padding chunk
-infos), `new_batch_prover` (:11). The bundle stage comes with the EVM
-verifier. Every stage runs on `device` (the card unless the caller passes
-device="cpu")."""
+`prove_and_verify_bundle` (:88), `get_blob_from_chunks` (:112, pads to
+MAX_AGG_SNARKS with padding chunk infos), `new_batch_prover` (:11). Every
+stage runs on `device` (the card unless the caller passes device="cpu")."""
 from __future__ import annotations
 
 import logging
@@ -14,7 +13,7 @@ from ..prover import (
     BatchProver, BatchVerifier, ChunkProver, ChunkVerifier,
     mock_padded_chunk_info_for_testing,
 )
-from ..prover.tasks import BatchProvingTask, ChunkProvingTask
+from ..prover.tasks import BatchProvingTask, BundleProvingTask, ChunkProvingTask
 
 log = logging.getLogger(__name__)
 
@@ -66,4 +65,17 @@ def prove_and_verify_batch(
     log.info("batch proof generated in %.1fs", time.perf_counter() - t0)
     verifier = BatchVerifier.from_params_and_assets(params_map, assets_dir, device)
     assert verifier.verify_batch_proof(proof), "batch proof verification failed"
+    return proof
+
+
+def prove_and_verify_bundle(
+    params_map, assets_dir: str, task: BundleProvingTask,
+    output_dir: str | None = None, device=None,
+):
+    prover = new_batch_prover(params_map, assets_dir, device=device)
+    t0 = time.perf_counter()
+    proof = prover.gen_bundle_proof(task, output_dir)
+    log.info("bundle proof generated in %.1fs", time.perf_counter() - t0)
+    verifier = BatchVerifier.from_params_and_assets(params_map, assets_dir, device)
+    assert verifier.verify_bundle_proof(proof), "bundle proof verification failed"
     return proof

@@ -2,9 +2,9 @@
 
 Wire shapes mirror the reference's chunk-proof JSON (SURVEY.md section 2.4:
 `{protocol(b64), proof(b64), instances(b64, 32B BE words), vk(b64),
-chunk_info, git_version, row_usages}`) and the batch wrapper
-(`BatchProofV2.inner.batch_hash` — SURVEY.md section 2.3). The bundle
-wrapper comes with the bundle layers.
+chunk_info, git_version, row_usages}`) and the Batch/Bundle wrappers
+(`BatchProofV2.inner.batch_hash`, `BundleProof::calldata()` — SURVEY.md
+section 2.3).
 """
 from __future__ import annotations
 
@@ -164,3 +164,31 @@ class BatchProofV2:
 
     def dump(self, dir_path: str, name: str) -> str:
         return dump_as_json(dir_path, f"full_proof_batch_{name}", self.to_json())
+
+
+@dataclass
+class BundleProof:
+    layers: list[ProofPayload]  # [layer5, layer6]
+
+    @property
+    def inner(self):
+        return self
+
+    @property
+    def proof(self) -> bytes:
+        return self.layers[-1].proof
+
+    def calldata(self) -> bytes:
+        """instances (32B BE words) || proof — the EVM verifier input shape
+        (reference BundleProof::calldata, unit_tests.rs:79-81)."""
+        return encode_instances(self.layers[-1].instances) + self.layers[-1].proof
+
+    def to_json(self) -> dict:
+        return {"layers": [l.to_json() for l in self.layers]}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "BundleProof":
+        return cls([ProofPayload.from_json(l) for l in d["layers"]])
+
+    def dump(self, dir_path: str, name: str) -> str:
+        return dump_as_json(dir_path, f"full_proof_bundle_{name}", self.to_json())

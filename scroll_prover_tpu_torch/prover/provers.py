@@ -5,7 +5,6 @@ API parity with the reference prover crate (SURVEY.md section 2.3):
 inner_id, output_dir)` (integration/src/prove.rs:30,38), the verifier
 counterparts (prove.rs:50-53, 75-80), `Prover::load_params_map(dir,
 degrees)` (bin/src/trace_prover.rs:35-36), CHUNK/BATCH_PROVER_DEGREES.
-The bundle layers (5 and 6) come with the EVM verifier.
 
 Chunk pipeline (reference stack 3.1): witness -> ScrollSuperCircuit inner
 proof -> layer1 compression -> layer2 compression (thin) = chunk proof.
@@ -351,6 +350,26 @@ def _batch_expose(n: int) -> list[tuple[int, int]]:
     return exp
 
 
+def _bundle_links(n: int) -> list[tuple[int, int, int, int]]:
+    """last_post_state_root(batch i) == first_prev_state_root(batch i+1)."""
+    links = []
+    for i in range(n - 1):
+        links.append((i, _L4_LAST_POST, i + 1, _L4_FIRST_PREV))
+        links.append((i, _L4_LAST_POST + 1, i + 1, _L4_FIRST_PREV + 1))
+    return links
+
+
+def _bundle_expose(n: int) -> list[tuple[int, int]]:
+    exp = [
+        (0, _L4_FIRST_PREV), (0, _L4_FIRST_PREV + 1),
+        (n - 1, _L4_LAST_POST), (n - 1, _L4_LAST_POST + 1),
+    ]
+    for i in range(n):
+        exp.append((i, _L4_BH))
+        exp.append((i, _L4_BH + 1))
+    return exp
+
+
 def _header_context(header) -> list[int]:
     """[batch_hash hi/lo, z hi/lo, y hi/lo]: the header values the layer-3
     circuit binds in its digest and exposes after it."""
@@ -366,9 +385,12 @@ def _header_context(header) -> list[int]:
 class BatchProver:
     """layer3 AggregationCircuit (in-circuit verification of every chunk
     layer2 SNARK and of the blob's evaluation at the header's (z, y)) +
-    layer4 verifier-compression -> BatchProofV2 (reference prove.rs:57-87,
-    SURVEY.md section 3.2). Runs on `device` (the card unless the caller
-    passes device="cpu"); an SRS the params map lacks is generated there."""
+    layer4 verifier-compression -> BatchProofV2; layer5 AggregationCircuit
+    over batch layer4s + layer6 (Keccak transcript, GWC) -> BundleProof,
+    with the release artifacts and the in-EVM verification of the bundle
+    (reference prove.rs:57-109, SURVEY.md section 3.2). Runs on `device`
+    (the card unless the caller passes device="cpu"); an SRS the params map
+    lacks is generated there."""
 
     def __init__(self, params_map: dict[int, kzg.SRS], assets_dir: str = "", device=None):
         self.device = resolve_device(device)
@@ -490,6 +512,109 @@ class BatchProver:
         if output_dir:
             proof.dump(output_dir, str(header.batch_index))
         return proof
+
+    def gen_bundle_proof(self, task, output_dir: str | None = None):
+        from ..proof_system.transcript import KeccakTranscript
+        from .aggregation_circuit import AggregationCircuit
+        from .proofs import BundleProof
+
+        headers = [p.inner.batch_header for p in task.batch_proofs]
+        for a, b in zip(headers, headers[1:]):
+            assert b.parent_batch_hash == a.batch_hash(), "batch chain broken"
+        inners = []
+        for p in task.batch_proofs:
+            l4 = p.inner.layers[-1]
+            vk4 = load_vk(l4.vk_id, self.assets_dir)
+            assert vk4 is not None, f"batch layer4 vk {l4.vk_id} unavailable"
+            inners.append((vk4, l4.proof, list(l4.instances)))
+        n = len(inners)
+        first_parent = headers[0].parent_batch_hash
+        last_hash = headers[-1].batch_hash()
+        context = [
+            int.from_bytes(first_parent[:16], "big"),
+            int.from_bytes(first_parent[16:], "big"),
+            int.from_bytes(last_hash[:16], "big"),
+            int.from_bytes(last_hash[16:], "big"),
+            n,
+        ]
+        log.info("bundle: layer5 aggregation over %d batches", n)
+        # layer5: in-circuit verification of every batch layer4 SNARK with
+        # cross-batch state-root chaining linked in-circuit (reference
+        # RecursionCircuit role)
+        mo = _ladder_multiopen()
+        l4_mos = {
+            p.inner.layers[-1].protocol.get("multiopen", "gwc")
+            for p in task.batch_proofs
+        }
+        assert len(l4_mos) == 1, f"mixed batch multiopen schemes: {l4_mos}"
+        layer5, vk5 = self._prove_circuit(
+            AggregationCircuit(
+                inners, context, inners_have_acc=True,
+                links=_bundle_links(n),
+                expose=_bundle_expose(n),
+                inner_multiopen=l4_mos.pop(),
+            ),
+            f"layer5_{'_'.join(hex(vk.transcript_repr())[:10] for vk, _, _ in inners)}",
+            multiopen=mo,
+        )
+        # layer6: in-circuit verification of layer5; the outer proof itself
+        # uses the EVM-facing Keccak transcript AND the GWC multiopen the
+        # generated verifier bytecode re-derives (the rest of the ladder
+        # proves SHPLONK — _ladder_multiopen)
+        layer6, _vk6 = self._prove_circuit(
+            VerifierCircuit(
+                vk5, layer5.proof, layer5.instances, inner_has_acc=True,
+                inner_multiopen=mo,
+            ),
+            f"layer6_{hex(vk5.transcript_repr())[:18]}",
+            transcript_cls=KeccakTranscript,
+            multiopen="gwc",
+        )
+        proof = BundleProof(layers=[layer5, layer6])
+        if output_dir:
+            proof.dump(output_dir, "recursion")
+            self._dump_release_artifacts(proof, layer6, output_dir)
+        return proof
+
+    def _dump_release_artifacts(self, proof, layer6, output_dir: str):
+        """Release-artifact protocol (reference release.sh:9-41 +
+        SCROLL_PROVER_DUMP_YUL, Makefile:51): evm_verifier.{yul,bin},
+        pi_bundle_recursion.data, proof_bundle_recursion.data."""
+        from ..evm.full_verifier import gen_full_verifier
+        from ..evm.harness import DEPLOYMENT_CODE_FILENAME
+        from .proofs import encode_instances
+
+        k = layer6.protocol["domain"]["k"]
+        srs = self._srs_for(k)
+        with open(os.path.join(output_dir, "pi_bundle_recursion.data"), "wb") as fh:
+            fh.write(encode_instances(layer6.instances))
+        with open(os.path.join(output_dir, "proof_bundle_recursion.data"), "wb") as fh:
+            fh.write(layer6.proof)
+        # the full in-bytecode verifier: transcript + GWC fold + accumulator
+        # fold + pairing, with the YUL emitted as the auditable source
+        # artifact. The layer6 vk was registered by keygen.
+        vk = load_vk(layer6.vk_id, self.assets_dir)
+        assert vk is not None, "layer6 vk must be registered"
+        bytecode, yul = gen_full_verifier(
+            vk, srs, len(layer6.instances), has_accumulator=True
+        )
+        with open(os.path.join(output_dir, DEPLOYMENT_CODE_FILENAME), "wb") as fh:
+            fh.write(bytecode)
+        with open(os.path.join(output_dir, "evm_verifier.yul"), "w") as fh:
+            fh.write(yul)
+
+    def evm_verify_bundle(self, proof, output_dir: str) -> int | None:
+        """Execute the bundle proof verification ENTIRELY inside the EVM:
+        the contract re-derives the transcript and multiopen fold from
+        calldata = [instances || proof] — no host verifier in the loop
+        (reference flow: EVMVerifier::from_dirs + verify_evm_proof,
+        prove.rs:103; calldata splice per unit_tests.rs:32)."""
+        from ..evm.full_verifier import proof_calldata
+        from ..evm.harness import EVMVerifier
+
+        l6 = proof.layers[-1]
+        calldata = proof_calldata(list(l6.instances), l6.proof)
+        return EVMVerifier.from_dirs(output_dir).verify_evm_proof(calldata)
 
 
 class BatchVerifier:
@@ -623,6 +748,36 @@ class BatchVerifier:
             if keccak256(preimage) != header.data_hash:
                 log.error("exposed chunk data hashes != header data_hash")
                 return False
+        return True
+
+    def verify_bundle_proof(self, proof) -> bool:
+        """O(1): ONE layer6 SNARK (Keccak transcript) + ONE accumulator
+        pairing transitively verifies layer5's in-circuit aggregation of
+        every batch proof, and below them every chunk and inner proof."""
+        from ..proof_system.transcript import KeccakTranscript
+
+        l5, l6 = proof.layers
+        if list(l6.instances[ACC_CELLS:]) != list(l5.instances[ACC_CELLS:]):
+            log.error("layer6 pass-through mismatch")
+            return False
+        if not self._verify_layer(
+            l6, transcript_cls=KeccakTranscript, folded_acc=True
+        ):
+            return False
+        # bundle PI sanity: [digest, first_parent hi/lo, last_hash hi/lo, n,
+        # first_prev hi/lo, last_post hi/lo, batch_hash_i hi/lo ...]; the
+        # last exposed batch hash must equal the declared last_hash context
+        inst = list(l6.instances)
+        base = ACC_CELLS + 1  # after digest
+        try:
+            n = inst[base + 4]
+            last_bh_off = base + 5 + 4 + 2 * (n - 1)
+            if inst[last_bh_off:last_bh_off + 2] != inst[base + 2:base + 4]:
+                log.error("last exposed batch hash != declared last_hash")
+                return False
+        except (IndexError, TypeError):
+            log.error("malformed bundle instance layout")
+            return False
         return True
 
 

@@ -19,7 +19,8 @@ from scroll_prover_tpu_torch.ops.ntt_tile import TiledDomain
 from scroll_prover_tpu_torch.ops.poseidon_dev import PoseidonDev
 from scroll_prover_tpu_torch.proof_system import kzg
 from scroll_prover_tpu_torch.proof_system.plonk import prover as tprover
-from scroll_prover_tpu_torch.prover import BatchProver, BatchVerifier
+from scroll_prover_tpu_torch.integration import prove_and_verify_bundle
+from scroll_prover_tpu_torch.prover import BatchProver, BatchVerifier, BundleProvingTask
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -66,7 +67,7 @@ def test_chip_smoke_refuses_without_cuda():
 @pytest.mark.parametrize(
     "entry",
     ["generate", "generate_fast", "load", "srs_from_numpy", "tiled_domain", "fast_domain", "poseidon_dev",
-     "prove", "coset_cache_cap", "batch_prover", "batch_verifier"],
+     "prove", "coset_cache_cap", "batch_prover", "batch_verifier", "prove_and_verify_bundle"],
 )
 def test_entry_points_refuse_silent_cpu(entry, tmp_path, monkeypatch):
     """Called without device="cpu" on a machine with no card, an entry point
@@ -90,6 +91,7 @@ def test_entry_points_refuse_silent_cpu(entry, tmp_path, monkeypatch):
         "coset_cache_cap": lambda: tprover._coset_cache_cap(1 << 20, 600, None),
         "batch_prover": lambda: BatchProver({}),
         "batch_verifier": lambda: BatchVerifier({}),
+        "prove_and_verify_bundle": lambda: prove_and_verify_bundle({}, "", BundleProvingTask([])),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -124,8 +126,45 @@ def test_every_module_is_listed():
     for mod in ("aggregator", "aggregator.constants", "aggregator.blob", "aggregator.batch_data",
                 "aggregator.batch_header", "aggregator.zstd_decoder", "aggregator.circuits",
                 "curves.bls12_381", "curves.bls12_381_pairing", "gadgets.blob_eval", "native.zstd_codec",
-                "prover.aggregation_circuit", "prover.proofs", "prover.provers", "integration.prove"):
+                "prover.aggregation_circuit", "prover.proofs", "prover.provers", "integration.prove",
+                "evm.interpreter", "evm.verifier_contract", "evm.full_verifier", "evm.harness"):
         assert f"scroll_prover_tpu_torch.{mod}" in names, mod
+
+
+_EVM_SIDE = """
+import sys
+from scroll_prover_tpu_torch.evm import DEPLOYMENT_CODE_FILENAME, EVMVerifier, gen_verifier_bytecode
+from scroll_prover_tpu_torch.evm.full_verifier import Gen, gen_full_verifier, proof_calldata
+from scroll_prover_tpu_torch.integration import prove_and_verify_bundle
+from scroll_prover_tpu_torch.prover import BatchProver, BatchVerifier, BundleProof
+from scroll_prover_tpu_torch.prover.proofs import ProofPayload
+from scroll_prover_tpu_torch.prover.provers import _bundle_expose, _bundle_links
+p = ProofPayload(proof=bytes(range(64)), instances=[1, 2], protocol={}, vk_id="0x1")
+b = BundleProof(layers=[p, p])
+assert b.calldata() == (1).to_bytes(32, "big") + (2).to_bytes(32, "big") + p.proof
+assert proof_calldata([1], p.proof)[32:64] == p.proof[:32][::-1]
+assert _bundle_links(2) and _bundle_expose(2)
+code, yul = Gen().finish()
+assert yul.startswith('object "plonk_verifier"')
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "scroll_prover_tpu" or m.startswith("scroll_prover_tpu."))
+print(bad)
+assert not bad, bad
+"""
+
+
+def test_evm_and_bundle_code_imports_no_jax():
+    """In a fresh interpreter: the EVM verifier, the bundle prover and
+    verifier, BundleProof and prove_and_verify_bundle import and run their
+    host code without jax or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", _EVM_SIDE], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "[]"
 
 
 @pytest.mark.parametrize("kernel", ["K2", "K6", "K7", "K8", "K7 tile", "K8 tile", "K7 misaligned", "K8 misaligned"])

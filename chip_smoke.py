@@ -52,10 +52,10 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      windows x 1024 point tiles) and the v1 batch's time breakdown, and K3
      against its plain version at the shape the v2 MSM gave it (4 columns x
      43 windows x 2^20 points);
-  5. the chunk's inner proof at k = 19: a synthetic block trace (8
-     transactions x 40,000 struct logs) through BlockTrace.from_json and
+  5. the chunk's inner proof at k = 18: a synthetic block trace (8
+     transactions x 20,000 struct logs) through BlockTrace.from_json and
      chunk_trace_to_witness_block, ScrollSuperCircuit at the package's
-     default caps with min_k() == 19, keygen on SRS.generate_fast(19),
+     default caps with min_k() == 18, keygen on SRS.generate_fast(18),
      prove (seed b"chip-smoke-chunk", SHPLONK; the quotient streams its 16
      cosets: the lookups' degree 9 sets j = 4), verify (must be True), a
      tampered proof rejected, the proof's sha256 equal to
@@ -86,21 +86,39 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      launch counts of K1-K5 over this phase alone (each must be > 0); then
      K2 at every pass the phase gave it that phases 3 and 5 did not hold,
      against its plain version;
- 6b. between layers 1 and 2 of phase 6, the EVM tail: layer 1's
-     VerifierCircuit proved again with layer 6's outer settings (the Keccak
-     transcript, GWC; seed EVM_TAIL_SEED) on phase 6's keys and its recorded
-     assignment, verified on the host with its 12 accumulator cells folded,
-     a tampered proof rejected there; the proof wrapped as the last layer of
-     a BundleProof, BatchProver._dump_release_artifacts writing the release
-     files (the full in-bytecode verifier, evm_verifier.bin and .yul) into
-     a temporary directory, and BatchProver.evm_verify_bundle running the
+ 6b. between layers 1 and 2 of phase 6, the low-memory prover and the EVM
+     tail: phase 6's layer-1 VerifierCircuit (its tables and the copies
+     they registered) keyed again under SPT_LOWMEM=1 with a ProveCheckpoint in a temporary
+     directory (fixed and sigma committed from their values, no
+     coefficient forms kept), its vk bytes equal to phase 6's layer-1 vk,
+     its pk in place of phase 6's; then proved with layer 6's outer
+     settings (the Keccak transcript, GWC) under bounded residency
+     (LOWMEM_SETTINGS: SPT_VALS_RESIDENT=4, SPT_ADVICE_COEFF_RESIDENT=4,
+     SPT_PACK_RESIDENT=1) and that checkpoint, whose meta.json holds
+     EVM_TAIL_SEED as a resumed directory would; the checkpoint's bytes and
+     the disk's free space; device memory at each of the prove's marks
+     beside phase 6's unbounded layer-1 prove's, and the peak of each; then
+     the checkpoint cut as a crash inside the quotient leaves it (the
+     quotient, evaluation and opening commits and the second half of the
+     coset files gone) and the prove resumed from it with a copy of the
+     circuit object (a new process's), the cosets and phases it took from the checkpoint
+     logged, its bytes equal to the bounded prove's; the switches and
+     SPT_* variables put back, the directory removed; the proof verified
+     on the host with its 12 accumulator cells folded, a tampered proof
+     rejected there; the proof wrapped as the last layer of a BundleProof,
+     BatchProver._dump_release_artifacts writing the release files (the
+     full in-bytecode verifier, evm_verifier.bin and .yul) into a
+     temporary directory, and BatchProver.evm_verify_bundle running the
      verifier in the port's EVM: accepted with gas > 100,000, and a revert
      (not gas) for one flipped proof byte and for one changed instance
      cell; the proof's and the bytecode's sha256 and the gas equal to
      EVM_TAIL_PROOF_SHA256, EVM_VERIFIER_SHA256 and EVM_TAIL_GAS; the sizes,
-     the seconds of each step and each EVM call, the peak device memory and
-     the launches of K1, K1as, K2, K3 and K4 over the step alone (each must
-     be > 0; phase 6's counts leave them out);
+     the seconds of the keygen, the prove and the resume (each by the
+     prover's phases) and of each EVM call, the launches of K1-K4 for the keygen, the prove
+     and the resume each, and those of K1, K1as, K2, K3 and K4 over the
+     bounded prove (each must be > 0; phase 6's counts leave the step
+     out). No assignment cache: a layer's copies.pkl would pickle millions
+     of copy tuples (the cache is held on the CPU by the tests);
   7. the batch at the package's defaults (blob width 4096, one builder
      lane, SHPLONK, the real BLS12-381 blob commitment), on a card freed
      of phase 6's prover: the blob of phase 6's chunk (get_blob_from_chunks,
@@ -133,6 +151,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import hashlib
@@ -179,11 +198,11 @@ ALT_PATH = ("K6", "K7", "K8")  # phase 4
 # leave every byte of the proof as it was
 PROOF_SHA256 = "1b562859a5b3ce535a9aadd41bb10f518633e8946def3f6714031413850433d3"
 CHUNK_PATH = ("K1", "K1as", "K2", "K3", "K4")  # phase 5
-# sha256 of the k=19 chunk proof (the synthetic trace below, seed
+# sha256 of the k=18 chunk proof (the synthetic trace below, seed
 # b"chip-smoke-chunk", SHPLONK), taken on the card: it changes only when the
 # prover's output, the super circuit or the trace generator is meant to change
-CHUNK_PROOF_SHA256 = "39e2c04430563d3631f641f66200f6923b9ea75d849b2a811969349a518dcac9"
-CHUNK_TXS, CHUNK_LOGS, CHUNK_K = 8, 40_000, 19
+CHUNK_PROOF_SHA256 = "0f008ce1c2bb3eb108b4c6bce55a12be92051bb63d0bf136fb4374c5332738ec"
+CHUNK_TXS, CHUNK_LOGS, CHUNK_K = 8, 20_000, 18
 LADDER_PATH = ("K1", "K1as", "K2", "K3", "K4", "K5")  # phase 6
 # sha256 of the layer-1 and layer-2 proofs over phase 3's BenchCircuit at
 # k = 20 on phase 5's chunk instance (inner seed LADDER_SEED, layer seeds
@@ -1244,6 +1263,31 @@ class _Marks(logging.Handler):
         self.rss.append(proc_status_gib("VmRSS"))
 
 
+class _MemMarks(_Marks):
+    """_Marks that also keep, at each mark, the device memory allocated and
+    the peak since the mark before (the peak is then reset), and the
+    largest of those peaks in `max_peak` (GiB)."""
+
+    def __init__(self):
+        super().__init__()
+        self.alloc = []
+        self.peaks = []
+        self.max_peak = 0.0
+
+    def emit(self, record):
+        super().emit(record)
+        self.alloc.append(torch.cuda.memory_allocated() / 2**30)
+        self.peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        self.max_peak = max(self.max_peak, self.peaks[-1])
+        torch.cuda.reset_peak_memory_stats()
+
+    def prove_marks(self) -> list:
+        """[(label, allocated GiB, peak GiB since the mark before)] of the
+        prover's "prove[...]" marks."""
+        return [(msg[len("prove["):msg.index("]")], a, p) for (msg, _t), a, p in zip(self.marks, self.alloc, self.peaks)
+                if msg.startswith("prove[")]
+
+
 @contextlib.contextmanager
 def prover_marks(logger: str = "scroll_prover_tpu_torch.proof_system.plonk.prover", tag: str = "chunk prove",
                  marks=None):
@@ -1618,7 +1662,7 @@ def ladder_layer(prover, prev, prev_vk, layer: int, mo: str):
     before = {key: wrapper(key).launches for key in LADDER_PATH}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with prover_marks("scroll_prover_tpu_torch", f"layer {layer} prove") as marks:
+    with prover_marks("scroll_prover_tpu_torch", f"layer {layer} prove", _MemMarks()) as marks:
         payload, vk, circ = prover._compress_layer(prev, prev_vk, layer, "ladder", mo,
                                                    seed=LADDER_SEED + bytes([layer]))
     at = {}
@@ -1656,7 +1700,9 @@ def ladder_layer(prover, prev, prev_vk, layer: int, mo: str):
         "rows": circ._rows, "k": vk.k, "advice": cs.num_advice, "fixed": cs.num_fixed, "lookups": len(cs.lookups),
         "gates": len(cs.gates), "permutation": len(cs.perm_columns), "extended_k": vk.domain.extended_k,
         "instances": len(payload.instances), "proof_bytes": len(payload.proof), "seconds": secs,
-        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_device_gib": max(marks.max_peak, torch.cuda.max_memory_allocated() / 2**30),
+        # device memory at the prove's marks: [label, allocated, peak since the mark before] (GiB)
+        "prove_marks_gib": [[label, round(a, 2), round(p, 2)] for label, a, p in marks.prove_marks()],
         # the largest RSS at the layer's progress marks (a process cannot
         # reset its peak everywhere), beside the process's peak so far
         "peak_rss_at_marks_gib": max(marks.rss),
@@ -1667,19 +1713,71 @@ def ladder_layer(prover, prev, prev_vk, layer: int, mo: str):
     return payload, vk, stats, circ
 
 
-def evm_tail(prover, p1, vk1, circ1, dev, rows) -> dict:
-    """Phase 6b (see the module docstring): layer 1's VerifierCircuit proved
-    again with layer 6's outer settings (the Keccak transcript, GWC) on the
-    keys phase 6 made for it, verified on the host with its accumulator
-    folded, then wrapped as the last layer of a BundleProof whose release
-    artifacts BatchProver writes (the full in-bytecode verifier among them)
-    and whose verification BatchProver runs in the port's EVM. Every check
-    is fatal. Returns the step's stats."""
+LOWMEM_SETTINGS = {"SPT_LOWMEM": "1", "SPT_VALS_RESIDENT": "4", "SPT_ADVICE_COEFF_RESIDENT": "4",
+                   "SPT_PACK_RESIDENT": "1"}  # phase 6b's bounded residency
+
+
+@contextlib.contextmanager
+def lowmem_switches():
+    """LOWMEM_SETTINGS in the environment and the prover's module switches
+    (_LOWMEM, _PACK, read at its import) on for the block; both put back
+    as they were after it."""
+    from scroll_prover_tpu_torch.proof_system.plonk import prover as pv
+
+    env = {key: os.environ.get(key) for key in LOWMEM_SETTINGS}
+    switches = (pv._LOWMEM, pv._PACK)
+    os.environ.update(LOWMEM_SETTINGS)
+    pv._LOWMEM = pv._PACK = True
+    try:
+        yield
+    finally:
+        pv._LOWMEM, pv._PACK = switches
+        for key, v in env.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+
+
+def launches_of(keys, fn):
+    """(fn's result, {key: launches during fn}) without counted()'s check
+    that each was launched (keygen launches no K1as)."""
+    counters = {key: wrapper(key) for key in keys}
+    before = {key: c.launches for key, c in counters.items()}
+    out = fn()
+    return out, {key: c.launches - before[key] for key, c in counters.items()}
+
+
+def log_prove_phases(marks, t_start: float, tag: str) -> None:
+    """The seconds of each of a prove's phases, from its marks."""
+    prev = t_start
+    for msg, t in marks.marks:
+        if msg.startswith("prove["):
+            log(f"{tag}: {msg[len('prove['):msg.index(']')]}: {t - prev:.2f} s")
+            prev = t
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def evm_tail(prover, p1, vk1, circ1, l1_stats, dev, rows) -> dict:
+    """Phase 6b (see the module docstring): layer 1's VerifierCircuit keyed
+    again and proved with bounded residency and a checkpoint (seeded with
+    EVM_TAIL_SEED) under layer 6's outer settings (the Keccak transcript,
+    GWC), resumed from that checkpoint cut inside the quotient, verified on
+    the host with its accumulator folded, then wrapped as the last layer of
+    a BundleProof whose release artifacts BatchProver writes (the full
+    in-bytecode verifier among them) and whose verification BatchProver
+    runs in the port's EVM. Every check is fatal. Returns the step's
+    stats."""
     import shutil
     import tempfile
 
     from scroll_prover_tpu_torch.evm.interpreter import EvmRevert, deploy_and_call
     from scroll_prover_tpu_torch.evm.full_verifier import proof_calldata
+    from scroll_prover_tpu_torch.proof_system.plonk.checkpoint import ProveCheckpoint
+    from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen
     from scroll_prover_tpu_torch.proof_system.plonk.prover import prove
     from scroll_prover_tpu_torch.proof_system.plonk.verifier import acc_from_limbs, verify
     from scroll_prover_tpu_torch.proof_system.transcript import KeccakTranscript
@@ -1693,46 +1791,133 @@ def evm_tail(prover, p1, vk1, circ1, dev, rows) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t_step = time.perf_counter()
     secs = {}
-    # keygen depends on neither the transcript nor the multiopen: the pk
-    # phase 6 made for layer 1 serves (no second keygen)
-    pks = [pk for pk, vk in prover._kg._cache.values() if vk is vk1]
-    if len(pks) != 1:
+    keys = [key for key, (_pk, vk) in prover._kg._cache.items() if vk is vk1]
+    if len(keys) != 1:
         fail("phase 6b: layer 1's keys are not in the prover's keygen cache")
     srs = prover.params_map[vk1.k]
     inst = [list(p1.instances)]
     fold = acc_from_limbs(inst[0][:ACC_CELLS])
+    ck_dir = tempfile.mkdtemp(prefix="spt_lowmem_ckpt_")
+    fingerprint = f"layer1-{vk1.transcript_repr():064x}"
+    stats = {"settings": dict(LOWMEM_SETTINGS), "checkpoint_dir": ck_dir}
+    try:
+        with lowmem_switches():
+            # a. the lowmem keygen of phase 6's layer-1 circuit (its tables and
+            # the copies they registered, kept from phase 6's keygen) over a
+            # new checkpoint
+            ck = ProveCheckpoint(ck_dir, fingerprint)
+            ck.meta["seed"] = EVM_TAIL_SEED.hex()  # as a resumed directory would hold it
+            ck._flush()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (pk, vk), kg_launches = launches_of(EVM_TAIL_PATH, lambda: keygen(srs, vk1.k, circ1, ckpt=ck))
+            torch.cuda.synchronize()
+            secs["keygen"] = time.perf_counter() - t0
+            if vk.to_bytes() != vk1.to_bytes():
+                fail("phase 6b: the lowmem keygen's vk bytes differ from phase 6's layer-1 vk")
+            if pk.fixed_polys is not None or pk.sigma_polys is not None:
+                fail("phase 6b: the lowmem keygen made coefficient forms")
+            # the lowmem pk takes the place of phase 6's (whose 36 resident
+            # coefficient forms go)
+            prover._kg._cache[keys[0]] = (pk, vk1)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"phase 6b keygen (SPT_LOWMEM, checkpoint {ck_dir}): {secs['keygen']:.2f} s; vk equal to phase 6's; "
+                f"launches {json.dumps(kg_launches)}")
 
-    def run():
-        t0 = time.perf_counter()
-        proof = prove(srs, pks[0], circ1, inst, transcript_cls=KeccakTranscript, seed=EVM_TAIL_SEED,
-                      multiopen="gwc")
-        torch.cuda.synchronize()
-        secs["prove"] = time.perf_counter() - t0
-        vk1.domain.release()  # as _compress_layer does after its prove
-        t0 = time.perf_counter()
-        ok = verify(srs, vk1, inst, proof, transcript_cls=KeccakTranscript, fold_accumulator=fold, multiopen="gwc")
-        secs["host_verify"] = time.perf_counter() - t0
-        if not ok:
-            fail("phase 6b: the Keccak/GWC layer-1 proof did not verify with its accumulator folded")
-        bad = bytearray(proof)
-        bad[len(bad) // 2] ^= 1
-        try:
-            rejected = not verify(srs, vk1, inst, bytes(bad), transcript_cls=KeccakTranscript, fold_accumulator=fold,
-                                  multiopen="gwc")
-        except (AssertionError, ValueError):
-            rejected = True
-        if not rejected:
-            fail("phase 6b: a tampered Keccak/GWC proof verified on the host")
-        torch.cuda.synchronize()
-        return proof
+            # b. the bounded, checkpointed prove (the step's counted path)
+            starts = {}
 
-    proof, launches, by_mode = counted(EVM_TAIL_PATH, run)
-    peak_dev = torch.cuda.max_memory_allocated() / 2**30
+            def run():
+                torch.cuda.synchronize()
+                t0 = starts["prove"] = time.perf_counter()
+                out = prove(srs, pk, circ1, inst, transcript_cls=KeccakTranscript, multiopen="gwc", ckpt=ck)
+                torch.cuda.synchronize()
+                secs["prove"] = time.perf_counter() - t0
+                vk.domain.release()  # as _compress_layer does after its prove
+                return out
+
+            torch.cuda.reset_peak_memory_stats()
+            with prover_marks(tag="phase 6b prove", marks=_MemMarks()) as pm:
+                proof, launches, by_mode = counted(EVM_TAIL_PATH, run)
+            peak_dev = max(pm.max_peak, torch.cuda.max_memory_allocated() / 2**30)
+            log_prove_phases(pm, starts["prove"], "phase 6b bounded prove")
+            ck_bytes = dir_bytes(ck_dir)
+            free = shutil.disk_usage(ck_dir).free
+            log(f"phase 6b bounded prove: {secs['prove']:.2f} s, peak device {peak_dev:.2f} GiB; checkpoint "
+                f"{ck_bytes} bytes ({ck_bytes / 2**30:.3f} GiB) in {len(os.listdir(ck_dir))} files, "
+                f"{free / 2**30:.1f} GiB free on its disk")
+            unbounded = {label: (a, p) for label, a, p in l1_stats["prove_marks_gib"]}
+            for label, a, p in pm.prove_marks():
+                ua, up = unbounded.get(label, (float("nan"), float("nan")))
+                log(f"phase 6b memory at prove[{label}]: allocated {a:.2f} GiB, peak since the mark before {p:.2f} "
+                    f"GiB (phase 6's unbounded layer-1 prove: {ua:.2f}, {up:.2f})")
+            l1_peak = max((p for _l, _a, p in l1_stats["prove_marks_gib"]), default=float("nan"))
+            log(f"phase 6b peak over the prove's marks {max(p for _l, _a, p in pm.prove_marks()):.2f} GiB; "
+                f"phase 6's layer-1 prove {l1_peak:.2f} GiB")
+
+            # c. the resume: later phases and half of the cosets cut, a fresh
+            # circuit object (a copy of phase 6's, which shares its
+            # assignment) and checkpoint handle, as a new process would make
+            with open(os.path.join(ck_dir, "meta.json")) as fh:
+                meta = json.load(fh)
+            for tag in ("p4_h", "p6_w"):
+                meta["points"].pop(tag, None)
+            meta["scalars"].pop("p5_evals", None)
+            with open(os.path.join(ck_dir, "meta.json"), "w") as fh:
+                json.dump(meta, fh)
+            cosets = sorted((f for f in os.listdir(ck_dir) if f.startswith("coset_")), key=lambda f: int(f[6:-4]))
+            for f in cosets[len(cosets) // 2:]:
+                os.remove(os.path.join(ck_dir, f))
+            kept = {"points": sorted(meta["points"]),
+                    "lookups": sorted(f for f in os.listdir(ck_dir) if f.startswith("lookup_")),
+                    "cosets": len(cosets) // 2}
+
+            def resume():
+                torch.cuda.synchronize()
+                t0 = starts["resume"] = time.perf_counter()
+                out = prove(srs, pk, copy.copy(circ1), inst, transcript_cls=KeccakTranscript, multiopen="gwc",
+                            ckpt=ProveCheckpoint(ck_dir, fingerprint))
+                torch.cuda.synchronize()
+                secs["resume"] = time.perf_counter() - t0
+                vk.domain.release()
+                return out
+
+            with prover_marks(tag="phase 6b resume") as rm:
+                resumed, res_launches, _ = counted(EVM_TAIL_PATH, resume)
+            from_ck = [m for m, _t in rm.marks if m.startswith("quotient coset") and m.endswith("(checkpoint)")]
+            log_prove_phases(rm, starts["resume"], "phase 6b resume")
+            log(f"phase 6b resume: {secs['resume']:.2f} s ({100 * secs['resume'] / secs['prove']:.1f}% of the "
+                f"bounded prove); from the checkpoint: the commit groups {kept['points']}, "
+                f"{len(kept['lookups'])} lookups, {len(from_ck)} of {len(cosets)} cosets; launches {json.dumps(res_launches)}")
+            if len(from_ck) != kept["cosets"]:
+                fail(f"phase 6b: the resume took {len(from_ck)} cosets from the checkpoint, not {kept['cosets']}")
+            if resumed != proof:
+                fail("phase 6b: the resumed proof's bytes differ from the bounded prove's")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
     for key, v in launches.items():
         rows[key]["evm_tail_launches"] = v
     for key, modes in by_mode.items():
         for mode, v in modes.items():
             rows[key]["modes"][mode]["evm_tail_launches"] = v
+
+    # the host verify and the EVM on the bounded prove's proof, at the
+    # package's defaults again
+    t0 = time.perf_counter()
+    ok = verify(srs, vk1, inst, proof, transcript_cls=KeccakTranscript, fold_accumulator=fold, multiopen="gwc")
+    secs["host_verify"] = time.perf_counter() - t0
+    if not ok:
+        fail("phase 6b: the Keccak/GWC layer-1 proof did not verify with its accumulator folded")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    try:
+        rejected = not verify(srs, vk1, inst, bytes(bad), transcript_cls=KeccakTranscript, fold_accumulator=fold,
+                              multiopen="gwc")
+    except (AssertionError, ValueError):
+        rejected = True
+    if not rejected:
+        fail("phase 6b: a tampered Keccak/GWC proof verified on the host")
 
     payload = ProofPayload(proof=proof, instances=inst[0],
                            protocol=protocol_from_vk(vk1, len(inst[0]), multiopen="gwc"),
@@ -1755,8 +1940,6 @@ def evm_tail(prover, p1, vk1, circ1, dev, rows) -> dict:
     if gas is None or gas <= 100_000:
         fail(f"phase 6b: the EVM verifier did not accept the bundle (gas {gas})")
     negatives = {}
-    bad = bytearray(proof)
-    bad[len(bad) // 2] ^= 1
     cell = list(inst[0])
     cell[ACC_CELLS] += 1  # the chunk instance's chain id, passed through
     for name, calldata in (("flipped proof byte", proof_calldata(inst[0], bytes(bad))),
@@ -1772,13 +1955,16 @@ def evm_tail(prover, p1, vk1, circ1, dev, rows) -> dict:
         negatives[name] = "reverted"
     secs["step"] = time.perf_counter() - t_step
     digests = {"proof": hashlib.sha256(proof).hexdigest(), "evm_verifier.bin": hashlib.sha256(code).hexdigest()}
-    stats = {
+    stats.update({
         "k": vk1.k, "instances": len(inst[0]), "proof_bytes": len(proof), "bytecode_bytes": len(code),
         "yul_bytes": yul_bytes, "gas": gas, "negatives": negatives, "sha256": digests, "seconds": secs,
-        "peak_device_gib": peak_dev,
-        "launches": launches, "k1_by_mode": by_mode,
-    }
-    log(f"phase 6b (EVM tail): {json.dumps(stats)}")
+        "peak_device_gib": peak_dev, "checkpoint_bytes": ck_bytes, "disk_free_bytes": free,
+        "from_checkpoint": {**kept, "cosets_read": len(from_ck), "cosets": len(cosets)},
+        "prove_marks_gib": [[label, round(a, 2), round(p, 2)] for label, a, p in pm.prove_marks()],
+        "launches": launches, "k1_by_mode": by_mode, "keygen_launches": kg_launches,
+        "resume_launches": res_launches,
+    })
+    log(f"phase 6b (lowmem, checkpoint, EVM tail): {json.dumps(stats)}")
     for what, got, pinned in (("proof", digests["proof"], EVM_TAIL_PROOF_SHA256),
                               ("evm_verifier.bin", digests["evm_verifier.bin"], EVM_VERIFIER_SHA256),
                               ("gas", gas, EVM_TAIL_GAS)):
@@ -1848,7 +2034,7 @@ def ladder(srs, dev, gen, rows, info, held_k2=frozenset()):
                             vk_id=hex(vk.transcript_repr()))
         prover = ChunkProver(params_map={k: srs}, device=dev)
         p1, vk1, out["layer1"], circ1 = ladder_layer(prover, prev, vk, 1, mo)
-        out["evm_tail"] = evm_tail(prover, p1, vk1, circ1, dev, rows)
+        out["evm_tail"] = evm_tail(prover, p1, vk1, circ1, out["layer1"], dev, rows)
         del circ1  # its assignment: layer 2 needs the host memory
         p2, vk2, out["layer2"], _ = ladder_layer(prover, p1, vk1, 2, mo)
         bad = bytearray(p2.proof)

@@ -225,9 +225,23 @@ def jac_mul(pt, k: int):
     return acc
 
 
-def host_msm_jac(points, scalars, c: int = 8):
-    """Host Pippenger over Jacobian coordinates; returns affine (or None)."""
-    nw = 256 // c
+def _g1_mul(pt, k: int):
+    """k * pt over G1 in Jacobian coordinates: one inversion at the end in
+    place of one per step of the affine ladder (~40x faster on the host,
+    where the verifiers spend their time), the same affine point."""
+    return jac_to_affine(jac_mul(pt, k))
+
+
+G1.mul = _g1_mul
+
+
+def host_msm_jac(points, scalars, c: int | None = None):
+    """Host Pippenger over Jacobian coordinates; returns affine (or None).
+    The window defaults to about log2(len(points)) - 2 bits (4 at 64 points:
+    a third of the additions of 8-bit windows there), at most 8."""
+    if c is None:
+        c = max(2, min(8, len(points).bit_length() - 3))
+    nw = -(-256 // c)
     acc = None
     for w in reversed(range(nw)):
         if acc is not None:

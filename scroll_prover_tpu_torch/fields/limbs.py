@@ -203,6 +203,8 @@ def packed_to_torch(packed: np.ndarray, device) -> torch.Tensor:
     the words cross as they are (half the bytes of the limbs) and split on
     the device."""
     w = np.ascontiguousarray(packed, dtype=np.uint32).view(np.int32)
+    if not w.flags.writeable:  # a memory map of the assignment cache
+        w = w.copy()
     return words_to_limbs(torch.from_numpy(w).to(device))
 
 

@@ -1,4 +1,4 @@
-"""Keygen: proving key / verifying key construction (fully resident path).
+"""Keygen: proving key / verifying key construction.
 
 vk = domain + commitments to fixed columns and permutation sigma polys +
 constraint-system shape; pk = vk + coefficient forms of fixed/sigma polys +
@@ -15,6 +15,7 @@ back to this package's classes.
 from __future__ import annotations
 
 import io
+import os
 import pickle
 from dataclasses import dataclass, field
 
@@ -27,8 +28,8 @@ from ...hashes.keccak import keccak256
 from ...ops import field_ops as fo
 from ...ops import poly as poly_ops
 from ...ops.ntt import EvaluationDomain
-from ..kzg import SRS, kzg_commit_batch
-from .cs import Circuit, ConstraintSystem
+from ..kzg import SRS, commit_group, kzg_commit_batch
+from .cs import Circuit, ConstraintSystem, assign_cached, packed_column
 
 # coset shift: DELTA generates distinct cosets of the 2^k subgroup H
 DELTA = pow(FR_GENERATOR, 1 << FR_TWO_ADICITY, FR_MOD)
@@ -148,7 +149,8 @@ class VerifyingKey:
 @dataclass
 class ProvingKey:
     vk: VerifyingKey
-    fixed_polys: list          # device (n, 16) Montgomery coeff forms
+    fixed_polys: list          # device (n, 16) Montgomery coeff forms (None
+                               # after a lowmem keygen: built by the prove)
     fixed_values: list         # host (n, 8) packed standard-form words
     sigma_polys: list
     sigma_values: "_SigmaValues"
@@ -186,10 +188,18 @@ class _SigmaValues:
         return self.m
 
 
-def keygen(srs: SRS, k: int, circuit: Circuit, instance=None):
+def keygen(srs: SRS, k: int, circuit: Circuit, instance=None, ckpt=None):
     """Returns (pk, vk), on the SRS's device. Fixed columns come from an
     assignment with a zero instance (fixed content must not depend on the
-    witness)."""
+    witness).
+
+    With SPT_LOWMEM=1 the fixed and sigma columns are committed from their
+    values (over the Lagrange basis when the SRS has the domain's size: the
+    same points as the coefficient forms' commits) one commit group at a
+    time, and their coefficient forms are left to the first prove, which
+    builds them at each use; `ckpt` (a checkpoint.ProveCheckpoint) then
+    memoizes the two commit lists ("kg_fixed", "kg_sigma") across restarts.
+    The vk is the same either way."""
     device = srs.device
     cs = ConstraintSystem()
     circuit.configure(cs)
@@ -197,16 +207,36 @@ def keygen(srs: SRS, k: int, circuit: Circuit, instance=None):
     dom = EvaluationDomain(k, _extended_j(cs))
     inst = np.empty((cs.num_instance, n), dtype=object)
     inst[:] = 0
-    tables = circuit.assign(cs, n, inst)
+    tables = assign_cached(circuit, cs, n, inst)
     # fixed values at rest on the host as packed standard-form words
-    fixed_vals = [objcol_to_packed(tables["fixed"][i]) for i in range(cs.num_fixed)]
+    fixed_vals = [packed_column(tables["fixed"][i]) for i in range(cs.num_fixed)]
     tables = None
 
     sigma_vals = _SigmaValues(_build_next(cs, n), len(cs.perm_columns), n, dom.omega, device)
-    fixed_polys = [dom.intt(encode_column(col, device)) for col in fixed_vals]
-    sigma_polys = [dom.intt(sigma_vals.col_mont(j)) for j in range(len(sigma_vals))]
-    fixed_coms = kzg_commit_batch(srs, fixed_polys)
-    sigma_coms = kzg_commit_batch(srs, sigma_polys)
+    if os.environ.get("SPT_LOWMEM") == "1":
+        from .prover import _commit_values
+
+        def commit_groups(count, column):
+            out = []
+            g = commit_group(n)
+            for i in range(0, count, g):
+                out += _commit_values(srs, dom, [column(j) for j in range(i, min(i + g, count))])
+            return out
+
+        def fixed_commits():
+            return commit_groups(len(fixed_vals), lambda j: encode_column(fixed_vals[j], device))
+
+        def sigma_commits():
+            return commit_groups(len(sigma_vals), sigma_vals.col_mont)
+
+        fixed_coms = fixed_commits() if ckpt is None else ckpt.points("kg_fixed", fixed_commits)
+        sigma_coms = sigma_commits() if ckpt is None else ckpt.points("kg_sigma", sigma_commits)
+        fixed_polys = sigma_polys = None
+    else:
+        fixed_polys = [dom.intt(encode_column(col, device)) for col in fixed_vals]
+        sigma_polys = [dom.intt(sigma_vals.col_mont(j)) for j in range(len(sigma_vals))]
+        fixed_coms = kzg_commit_batch(srs, fixed_polys)
+        sigma_coms = kzg_commit_batch(srs, sigma_polys)
 
     usable = cs.usable_rows(n)
     l0_vals = np.zeros(n, dtype=np.int64)

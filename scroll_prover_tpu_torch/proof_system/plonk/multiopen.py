@@ -154,6 +154,8 @@ def shplonk_open(
         comb = None
         vals = {p: 0 for p in points}
         for obj, j, pv in members:
+            if hasattr(obj, "get"):  # lazy coefficient column (prover._LazyPoly)
+                obj = obj.get()
             vj = pow(v_ch, j, FR_MOD)
             comb = _axpy_pad(vj, obj, comb, mont_scalar)
             for p in points:

@@ -31,13 +31,13 @@ from ...device import resolve_device
 from ...fields.bn254 import FR_MOD
 from ...fields.limbs import (
     FR_LIMB, N_LIMBS, ints_to_limbs, ints_to_packed, limbs_from_torch, limbs_to_torch, limbs_to_words,
-    objcol_to_packed, packed_to_ints,
+    packed_to_ints, packed_to_torch, words_to_limbs,
 )
 from ...ops import field_ops as fo
 from ...ops import poly as poly_ops
-from ..kzg import SRS, kzg_commit, kzg_commit_batch
+from ..kzg import SRS, commit_group, kzg_commit, kzg_commit_batch
 from ..transcript import PoseidonTranscript
-from .cs import ConstraintSystem
+from .cs import ConstraintSystem, assign_cached, packed_column
 from .keygen import DELTA, ProvingKey, encode_column
 from .mock import _pad_instance
 
@@ -46,6 +46,104 @@ log = logging.getLogger(__name__)
 
 # field elements per batched NTT group (2^22 = 256 MiB of int32 limbs)
 NTT_BATCH_BUDGET = 1 << 22
+
+# SPT_PACK_RESIDENT=1: columns held on the device between their uses are
+# kept as (n, 8) words (two 16-bit limbs per int32) instead of (n, 16)
+# limbs, half the bytes, and unpacked at each use
+_PACK = os.environ.get("SPT_PACK_RESIDENT") == "1"
+
+# SPT_LOWMEM=1: bounded residency. Value columns are served from the host's
+# packed copies through an LRU (_ValSource, SPT_VALS_RESIDENT columns), the
+# permutation's columns pinned for the grand products; after phase 3 only
+# SPT_ADVICE_COEFF_RESIDENT advice coefficient forms are made, the others,
+# the lookups' permuted columns and (after a lowmem keygen) the fixed and
+# sigma columns are rebuilt at each use (_LazyPoly). Proof bytes are those
+# of the default path; a checkpointed prove (ckpt=) requires it.
+_LOWMEM = os.environ.get("SPT_LOWMEM") == "1"
+
+
+def _P(x: torch.Tensor) -> torch.Tensor:
+    """Pack a resident (n, 16) limb column into (n, 8) words (only under
+    SPT_PACK_RESIDENT=1; idempotent by shape)."""
+    return limbs_to_words(x) if _PACK and x.shape[-1] == N_LIMBS else x
+
+
+def _U(x: torch.Tensor) -> torch.Tensor:
+    """Unpack a packed column at its point of use (no-op on limbs)."""
+    return words_to_limbs(x) if x.shape[-1] == N_LIMBS // 2 else x
+
+
+class _ValSource:
+    """LRU-bounded device view over host packed value columns (lowmem).
+
+    A column is encoded on demand from its host packed words (one upload,
+    one split into limbs, one to-Montgomery product) and the least recently
+    used beyond `cap` are dropped; the permutation's columns can be pinned
+    for the grand products. SPT_VALS_RESIDENT caps the pool (unset: no cap,
+    every column stays once loaded)."""
+
+    def __init__(self, cols_host, enc):
+        from collections import OrderedDict
+
+        self.cols = cols_host
+        self.enc = enc
+        self.cap = int(os.environ.get("SPT_VALS_RESIDENT", "0")) or (1 << 60)
+        self.live = OrderedDict()
+        self.pinned: dict = {}
+
+    def _load(self, i):
+        return _P(self.enc(self.cols[i]))
+
+    def __len__(self):
+        return len(self.cols)
+
+    def __getitem__(self, i):
+        if i in self.pinned:
+            return self.pinned[i]
+        if i in self.live:
+            self.live.move_to_end(i)
+            return self.live[i]
+        d = self._load(i)
+        self.live[i] = d
+        while len(self.live) > self.cap:
+            self.live.popitem(last=False)
+        return d
+
+    def pin(self, i):
+        if i not in self.pinned:
+            d = self.live.pop(i, None)
+            self.pinned[i] = d if d is not None else self._load(i)
+
+    def take(self, i):
+        """Column i, dropped from the pool (consume-as-you-go)."""
+        d = self.pinned.pop(i, None)
+        if d is None:
+            d = self.live.pop(i, None)
+        return d if d is not None else self._load(i)
+
+    def clear(self):
+        self.live.clear()
+        self.pinned.clear()
+
+
+class _LazyPoly:
+    """A coefficient column made at each use and dropped after it: an NTT
+    of host values (advice beyond the resident budget, the lookups'
+    permuted columns, fixed columns after a lowmem keygen) or of the sigma
+    gather on the device."""
+
+    __slots__ = ("fn",)
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def get(self):
+        return self.fn()
+
+
+def _R(pol):
+    """Resolve a possibly lazy column handle to its device tensor."""
+    return pol.get() if isinstance(pol, _LazyPoly) else pol
 
 
 def _mont_scalar(v: int, device) -> torch.Tensor:
@@ -109,6 +207,62 @@ def _intt_cols(dom, cols) -> list:
     return out
 
 
+def _advice_coeffs_lowmem(dom, src: _ValSource, cs, enc) -> list:
+    """Advice value source -> coefficient columns under a residency budget.
+
+    Columns are ranked by their static use count over gates, lookups and
+    the permutation (witness-independent); the first
+    SPT_ADVICE_COEFF_RESIDENT get coefficient forms, made consume-as-you-go,
+    and the rest become _LazyPoly rebuilds from the host values (blinding
+    rows included)."""
+    cap = int(os.environ.get("SPT_ADVICE_COEFF_RESIDENT", "0")) or (1 << 60)
+    n_cols = len(src)
+    if cap >= n_cols:
+        resident = set(range(n_cols))
+    else:
+        uses: dict[int, int] = {}
+        for _, expr in cs.gates:
+            for kind, c_, _rot in expr.queries():
+                if kind == "advice":
+                    uses[c_] = uses.get(c_, 0) + 1
+        for lk in cs.lookups:
+            for e in lk.inputs + lk.tables:
+                for kind, c_, _rot in e.queries():
+                    if kind == "advice":
+                        uses[c_] = uses.get(c_, 0) + 1
+        for cref in cs.perm_columns:
+            if cref.kind == "advice":
+                uses[cref.index] = uses.get(cref.index, 0) + 2
+        order = sorted(range(n_cols), key=lambda i: -uses.get(i, 0))
+        resident = set(order[:cap])
+    out: list = [None] * n_cols
+    g = _ntt_group(dom.n)
+    batch: list[int] = []
+
+    def flush():
+        if not batch:
+            return
+        grp = [_U(src.take(j)) for j in batch]
+        if len(grp) == 1:
+            out[batch[0]] = _P(dom.intt(grp[0]))
+        else:
+            for j, e in zip(batch, dom.intt_batch(torch.stack(grp)).unbind(0)):
+                out[j] = _P(e)
+        batch.clear()
+
+    for i in range(n_cols):
+        if i in resident:
+            batch.append(i)
+            if len(batch) >= g:
+                flush()
+        else:
+            src.live.pop(i, None)
+            src.pinned.pop(i, None)
+            out[i] = _LazyPoly(lambda i=i: dom.intt(enc(src.cols[i])))
+    flush()
+    return out
+
+
 def _n_h(cs: ConstraintSystem, dom) -> int:
     """Quotient piece count: deg(h) < (d-1)n for term-degree budget d."""
     d = max(cs.max_gate_degree(), 5)
@@ -138,10 +292,18 @@ def prove(
     transcript_cls=PoseidonTranscript,
     seed: bytes | None = None,
     multiopen: str = "gwc",
+    ckpt=None,
 ) -> bytes:
     """Prove `circuit` on the SRS's device. A fixed `seed` (deterministic
-    blinding) is for tests only; by default every proof draws fresh entropy."""
-    if seed is None:
+    blinding) is for tests only; by default every proof draws fresh entropy.
+    With `ckpt` (a checkpoint.ProveCheckpoint; SPT_LOWMEM=1 required) the
+    seed is the checkpoint's, and every commit group, lookup, quotient coset
+    and the evaluations are memoized there, so that a prove resumed in a new
+    process replays the transcript to the same bytes."""
+    if ckpt is not None:
+        assert _LOWMEM, "checkpointed proves require SPT_LOWMEM=1"
+        seed = ckpt.seed
+    elif seed is None:
         seed = os.urandom(32)
     device = resolve_device(srs.device)
     vk = pk.vk
@@ -153,7 +315,18 @@ def prove(
     omega = dom.omega
     enc = lambda vals: encode_column(vals, device)  # noqa: E731
     msc = lambda v: _mont_scalar(v, device)  # noqa: E731
-    commit_vals = lambda cols: _commit_values(srs, dom, cols)  # noqa: E731
+
+    def memo(tag, fn):
+        return fn() if ckpt is None else ckpt.points(tag, fn)
+
+    def commit_cols(cols):
+        """Commitments of value columns (handles or a _ValSource), one
+        commit group unpacked at a time."""
+        out = []
+        g_c = commit_group(n)
+        for i in range(0, len(cols), g_c):
+            out += _commit_values(srs, dom, [_U(cols[j]) for j in range(i, min(i + g_c, len(cols)))])
+        return out
 
     _t0 = time.perf_counter()
 
@@ -161,11 +334,14 @@ def prove(
         log.info("prove[%s] %.1fs", msg, time.perf_counter() - _t0)
 
     inst = _pad_instance(cs, n, instance)
-    tables = circuit.assign(cs, n, inst)
+    tables = assign_cached(circuit, cs, n, inst)
     # host packed standard-form advice values, blinding rows in place
     advice_host = []
     for i in range(cs.num_advice):
-        col = objcol_to_packed(tables["advice"][i])
+        raw = tables["advice"][i]
+        col = packed_column(raw)
+        if col is raw:  # the assignment cache's words (a read-only map)
+            col = np.array(col)
         col[usable:] = _blind_packed(seed, f"adv{i}", n - usable)
         advice_host.append(col)
     tables = None
@@ -179,9 +355,22 @@ def prove(
     # when the SRS is the domain's size: the same points); coefficient forms
     # are made after phase 3, each value column freed as its coefficients
     # appear (_intt_consume), so values and coefficients never coexist.
-    advice_dev = [enc(col) for col in advice_host]
-    fixed_dev = [enc(col) for col in pk.fixed_values]
-    inst_dev = [enc([int(v) for v in inst[i]]) for i in range(cs.num_instance)]
+    # Lowmem: LRU-bounded sources instead of resident lists.
+    if _LOWMEM:
+        advice_dev = _ValSource(advice_host, enc)
+        fixed_dev = _ValSource(pk.fixed_values, enc)
+    else:
+        advice_dev = [_P(enc(col)) for col in advice_host]
+        fixed_dev = [_P(enc(col)) for col in pk.fixed_values]
+    inst_dev = [_P(enc([int(v) for v in inst[i]])) for i in range(cs.num_instance)]
+    if _PACK:
+        # the keys' resident coefficient forms, packed for this prove
+        # (idempotent; a lowmem keygen left fixed and sigma to the prove)
+        for name in ("fixed_polys", "sigma_polys"):
+            if getattr(pk, name) is not None:
+                setattr(pk, name, [p if isinstance(p, _LazyPoly) else _P(p) for p in getattr(pk, name)])
+        pk.l0 = _P(pk.l0)
+        pk.l_last = _P(pk.l_last)
     vals_dev = {"advice": advice_dev, "fixed": fixed_dev, "instance": inst_dev}
     ones_n = fo.one_mont(F, (n,), device=device)
 
@@ -190,7 +379,7 @@ def prove(
         theta_b = _bcast(msc(theta), n)
 
         def q(kind, col, rot):
-            arr = vals_dev[kind][col]
+            arr = _U(vals_dev[kind][col])
             return torch.roll(arr, -rot, dims=0) if rot else arr
 
         return expr.evaluate(
@@ -203,7 +392,8 @@ def prove(
         )
 
     # --- phase 1: advice commitments -------------------------------------
-    for c in commit_vals(advice_dev):
+    # lowmem: the columns stream through the LRU, a commit group at a time
+    for c in memo("p1_advice", lambda: commit_cols(advice_dev)):
         tr.write_point(c)
 
     _mark("advice committed")
@@ -218,30 +408,51 @@ def prove(
             acc = v if acc is None else fo.mont_mul_add(F, acc, theta_b, v)
         return acc
 
-    # compressed input/table columns and their permutations (made on the
-    # device) stay on the host, packed; phases 3 and 4 bring them back as
-    # they need them
-    lookups = []
-    for li, lk in enumerate(cs.lookups):
+    def build_lookup(lk, li):
+        """Compressed input/table columns and their permutations (made on
+        the device), read back to the host as packed words."""
         a_w = _std_words(compress_dev(lk.inputs), usable, n)
         s_w = _std_words(compress_dev(lk.tables), usable, n)
         # grand product (hence multiset equality) covers rows 0..u-1
         a_perm, s_perm = _permute_lookup(a_w[:u], s_w[:u])
-        lookups.append({
+        return {
             "a": _words_host(a_w),
             "s": _words_host(s_w),
             "a_perm": np.concatenate([_words_host(a_perm), _blind_packed(seed, f"lkA{li}", n - u)]),
             "s_perm": np.concatenate([_words_host(s_perm), _blind_packed(seed, f"lkS{li}", n - u)]),
-        })
+        }
+
+    # the lookups' columns stay on the host, packed; phases 3 and 4 bring
+    # them back as they need them
+    lookups = []
+    for li, lk in enumerate(cs.lookups):
+        if ckpt is None:
+            lookups.append(build_lookup(lk, li))
+        else:
+            lookups.append(ckpt.lookup(li, lambda lk=lk, li=li: build_lookup(lk, li)))
     perm_host = [lk[key] for lk in lookups for key in ("a_perm", "s_perm")]
     g = _ntt_group(n)
-    for i in range(0, len(perm_host), g):
-        for c in commit_vals([enc(col) for col in perm_host[i : i + g]]):
-            tr.write_point(c)
+
+    def p2_commits():
+        out = []
+        for i in range(0, len(perm_host), g):
+            out += _commit_values(srs, dom, [enc(col) for col in perm_host[i : i + g]])
+        return out
+
+    for c in memo("p2_perm", p2_commits):
+        tr.write_point(c)
 
     _mark("lookups committed")
     beta = tr.squeeze_challenge()
     gamma = tr.squeeze_challenge()
+    if _LOWMEM:
+        # the value tables served their last broad use: pin the columns of
+        # the permutation for the grand products and release the rest
+        for cref in cs.perm_columns:
+            if cref.kind in ("advice", "fixed"):
+                vals_dev[cref.kind].pin(cref.index)
+        advice_dev.live.clear()
+        fixed_dev.live.clear()
 
     # --- phase 3: grand products (device scans + batched inversion) -------
     beta_b = _bcast(msc(beta), n)
@@ -276,19 +487,22 @@ def prove(
         den = ones_n
         for jj in chunk:
             cref = cs.perm_columns[jj]
-            v = vals_dev[cref.kind][cref.index]
+            v = _U(vals_dev[cref.kind][cref.index])
             dj = msc(beta * pow(DELTA, jj, FR_MOD) % FR_MOD)
             num = fo.mont_mul(
                 F, num, fo.add_mod(F, fo.mont_mul_add(F, dj, om_pows_dev, v), gamma_b)
             )
+            # sigma streams from the keys' gather at its point of use
             den = fo.mont_mul(
                 F, den,
                 fo.add_mod(F, fo.mont_mul_add(F, beta_b, pk.sigma_col_mont(jj), v), gamma_b),
             )
         z, last_z = grand_product(num, den, last_z)
-        perm_z_devs.append(with_blinding(z, f"permz{len(perm_z_devs)}"))
+        perm_z_devs.append(_P(with_blinding(z, f"permz{len(perm_z_devs)}")))
 
     # the fixed value tables served their last use
+    if _LOWMEM:
+        fixed_dev.clear()
     vals_dev["fixed"] = fixed_dev = None
     lookup_z_devs = []
     one_sc = fo.one_mont(F, device=device)
@@ -298,12 +512,12 @@ def prove(
             F, fo.add_mod(F, enc(lk["a_perm"]), beta_b), fo.add_mod(F, enc(lk["s_perm"]), gamma_b)
         )
         z, _ = grand_product(num, den, one_sc)
-        lookup_z_devs.append(with_blinding(z, f"lkz{li}"))
+        lookup_z_devs.append(_P(with_blinding(z, f"lkz{li}")))
 
     # one commit chain for perm Zs + lookup Zs + the random poly: no
     # challenge is squeezed between these transcript writes
     rand_dev = enc(_blind(seed, "rand", n))
-    for c in commit_vals(perm_z_devs + lookup_z_devs + [rand_dev]):
+    for c in memo("p3", lambda: commit_cols(perm_z_devs + lookup_z_devs + [rand_dev])):
         tr.write_point(c)
 
     # --- phase 4: vanishing / quotient ------------------------------------
@@ -311,28 +525,48 @@ def prove(
     y = tr.squeeze_challenge()
 
     # values -> coefficient forms, each value column freed as its
-    # coefficients appear
+    # coefficients appear; lowmem: only the budget's advice columns, the
+    # rest, the lookups' permuted columns and deferred fixed/sigma columns
+    # are rebuilt at each use
     vals_dev = None
-    advice_polys = _intt_consume(dom, advice_dev)
+    if _LOWMEM:
+        advice_polys = _advice_coeffs_lowmem(dom, advice_dev, cs, enc)
+        advice_dev.clear()
+    else:
+        advice_polys = _intt_consume(dom, advice_dev)
     instance_polys = _intt_consume(dom, inst_dev)
     perm_z_polys = _intt_consume(dom, perm_z_devs)
     lookup_z_polys = _intt_consume(dom, lookup_z_devs)
     random_poly = _intt_consume(dom, [rand_dev])[0]
     advice_dev = inst_dev = perm_z_devs = lookup_z_devs = rand_dev = None
-    lk_polys = []
-    for i in range(0, len(perm_host), g):
-        lk_polys += _intt_consume(dom, [enc(col) for col in perm_host[i : i + g]])
-    for i, lk in enumerate(lookups):
-        lk["a_poly"] = lk_polys[2 * i]
-        lk["s_poly"] = lk_polys[2 * i + 1]
+    if _LOWMEM:
+        for lk in lookups:
+            for key, pkey in (("a_perm", "a_poly"), ("s_perm", "s_poly")):
+                lk[pkey] = _LazyPoly(lambda col=lk[key]: dom.intt(enc(col)))
+    else:
+        lk_polys = []
+        for i in range(0, len(perm_host), g):
+            lk_polys += _intt_consume(dom, [enc(col) for col in perm_host[i : i + g]])
+        for i, lk in enumerate(lookups):
+            lk["a_poly"] = lk_polys[2 * i]
+            lk["s_poly"] = lk_polys[2 * i + 1]
+    if pk.fixed_polys is None:
+        # a lowmem keygen committed fixed and sigma from their values: their
+        # coefficient forms are an upload and an NTT of the host words, and
+        # a gather and an NTT, at each use
+        pk.fixed_polys = [
+            _LazyPoly(lambda j=j: dom.intt(enc(pk.fixed_values[j]))) for j in range(len(pk.fixed_values))
+        ]
+    if pk.sigma_polys is None:
+        pk.sigma_polys = [_LazyPoly(lambda j=j: dom.intt(pk.sigma_col_mont(j))) for j in range(len(pk.sigma_values))]
     _mark("coefficient forms")
     h_chunk_polys = _build_quotient(
         pk, dom, cs, advice_polys, list(pk.fixed_polys), instance_polys,
         pk.sigma_polys, perm_z_polys, lookups, lookup_z_polys,
-        chunks, theta, beta, gamma, y, u, device,
+        chunks, theta, beta, gamma, y, u, device, ckpt=ckpt,
     )
     _mark("quotient built")
-    for c in kzg_commit_batch(srs, h_chunk_polys):
+    for c in memo("p4_h", lambda: kzg_commit_batch(srs, h_chunk_polys)):
         tr.write_point(c)
     _mark("quotient committed")
 
@@ -379,14 +613,16 @@ def prove(
         h_comb = poly_ops.axpy_mont(F, msc(wpow), h_chunk_polys[a], h_comb)
     emit(h_comb, x, write=False)
 
-    # one powers table per distinct point, shared by every opening there
-    pw_tables: dict[int, torch.Tensor] = {}
-    for _, pt, _w in plan5:
-        if pt not in pw_tables:
-            pw_tables[pt] = _pow_table(pt, n, dom.k, device)
-    ev_dev = [poly_ops.eval_poly_with_powers(F, p, pw_tables[pt]) for p, pt, _ in plan5]
-    ev_vals = F.decode(limbs_from_torch(torch.stack(ev_dev)))
-    del pw_tables
+    def compute_evals():
+        # one powers table per distinct point, shared by every opening there
+        pw_tables: dict[int, torch.Tensor] = {}
+        for _, pt, _w in plan5:
+            if pt not in pw_tables:
+                pw_tables[pt] = _pow_table(pt, n, dom.k, device)
+        ev_dev = [poly_ops.eval_poly_with_powers(F, _U(_R(p)), pw_tables[pt]) for p, pt, _ in plan5]
+        return F.decode(limbs_from_torch(torch.stack(ev_dev)))
+
+    ev_vals = compute_evals() if ckpt is None else ckpt.scalars("p5_evals", compute_evals)
     queries: list[tuple] = []  # (poly, point, value)
     for (p, pt, write), v in zip(plan5, ev_vals):
         v = int(v)
@@ -401,6 +637,7 @@ def prove(
         from .multiopen import query_labels, shplonk_open
 
         labels = query_labels(qs, m, len(chunks), len(lookups))
+        queries = [(p if isinstance(p, _LazyPoly) else _U(p), pt, val) for (p, pt, val) in queries]
         shplonk_open(srs, queries, labels, v_ch, tr, kzg_commit, msc, enc)
         _mark("multiopen done (shplonk)")
         return tr.finalize()
@@ -410,12 +647,16 @@ def prove(
     for _, point, _ in queries:
         if point not in points_order:
             points_order.append(point)
-    wit_polys = []
-    for point in points_order:
-        group = [(p, val) for (p, pt, val) in queries if pt == point]
-        comb = _combine(group, v_ch, device)
-        wit_polys.append(poly_ops.kzg_quotient_mont(F, comb, msc(point)))
-    for c in kzg_commit_batch(srs, wit_polys):
+
+    def p6_commits():
+        wit_polys = []
+        for point in points_order:
+            group = [(p, val) for (p, pt, val) in queries if pt == point]
+            comb = _combine(group, v_ch, device)
+            wit_polys.append(poly_ops.kzg_quotient_mont(F, comb, msc(point)))
+        return kzg_commit_batch(srs, wit_polys)
+
+    for c in memo("p6_w", p6_commits):
         tr.write_point(c)
 
     _mark("multiopen done")
@@ -444,11 +685,11 @@ def _intt_consume(dom, cols: list) -> list:
     out: list = []
     g = _ntt_group(dom.n)
     for i in range(0, len(cols), g):
-        grp = cols[i : i + g]
+        grp = [_U(c) for c in cols[i : i + g]]
         if len(grp) == 1:
-            out.append(dom.intt(grp[0]))
+            out.append(_P(dom.intt(grp[0])))
         else:
-            out.extend(dom.intt_batch(torch.stack(grp)).unbind(0))
+            out.extend(_P(e) for e in dom.intt_batch(torch.stack(grp)).unbind(0))
         cols[i : i + g] = [None] * len(grp)
         del grp
     cols.clear()
@@ -458,8 +699,16 @@ def _intt_consume(dom, cols: list) -> list:
 def _combine(group, v_ch, device):
     """sum_i v^i f_i over (poly, eval) pairs; f_0 gets v^0. Stacked in
     chunks of NTT_BATCH_BUDGET elements: one product by the v-power column
-    and one halving tree-sum per chunk."""
-    maxlen = max(p.shape[0] for p, _ in group)
+    and one halving tree-sum per chunk. Lazy columns are made as their
+    chunk is stacked (the length comes from the others: a lazy column is a
+    whole-domain NTT output, never longer than them)."""
+    eager_lens = [p.shape[0] for p, _ in group if not isinstance(p, _LazyPoly)]
+    if eager_lens:
+        maxlen = max(eager_lens)
+    else:
+        first = _R(group[0][0])
+        group = [(first, group[0][1])] + list(group[1:])
+        maxlen = first.shape[0]
     batch = max(1, NTT_BATCH_BUDGET // max(maxlen, 1))
     vpows, vp = [], 1
     for _ in group:
@@ -470,6 +719,8 @@ def _combine(group, v_ch, device):
         chunk = group[b0 : b0 + batch]
         padded = []
         for polyc, _ in chunk:
+            polyc = _U(_R(polyc))
+            assert polyc.shape[0] <= maxlen, "a lazy column is longer than its group's columns"
             if polyc.shape[0] < maxlen:
                 polyc = torch.cat([polyc, polyc.new_zeros(maxlen - polyc.shape[0], N_LIMBS)])
             padded.append(polyc)
@@ -628,7 +879,7 @@ class _WalkEnv:
 def _build_quotient(
     pk, dom, cs, advice_polys, fixed_polys, instance_polys, sigma_polys,
     perm_z_polys, lookups, lookup_z_polys, chunks, theta, beta, gamma, y, u,
-    device,
+    device, ckpt=None,
 ):
     """Evaluate all constraints on the extended coset domain, combine with y
     powers, divide by the vanishing poly, return h chunks (each (n, 16))."""
@@ -662,7 +913,7 @@ def _build_quotient(
     dom.prepare_intt_extended(lact_poly.device)
     acc_ext = _quotient_cosets(
         pk, dom, cs, by_kind, zpolys, lact_poly, chunks,
-        theta, beta, gamma, y, u, vshort, device,
+        theta, beta, gamma, y, u, vshort, device, ckpt,
     )
     by_kind = zpolys = None
     h_coeffs = dom.intt_extended(acc_ext)
@@ -744,7 +995,7 @@ def _coset_cache_cap(n: int, n_cols: int, device):
 
 def _quotient_cosets(
     pk, dom, cs, by_kind, zpolys, lact_poly, chunks, theta, beta, gamma, y,
-    u, vshort, device,
+    u, vshort, device, ckpt=None,
 ):
     """Coset-streaming quotient path. The extended coset g*H_ext is the
     disjoint union of `ratio` cosets shift_r*H, shift_r = g*w_ext^r; the
@@ -755,7 +1006,9 @@ def _quotient_cosets(
     and one interleave gives the evaluations on the whole extended coset.
     The cache holds at most _coset_cache_cap columns, filled in the order of
     their static use count; a column beyond it is re-transformed at each
-    read."""
+    read (a lazy one made again first). With `ckpt` each finished coset's
+    accumulator is kept there as packed Montgomery words, and a coset found
+    there is not walked again."""
     ext_n = dom.extended_n
     n = dom.n
     ratio = ext_n // n
@@ -774,6 +1027,10 @@ def _quotient_cosets(
     g = _ntt_group(n)
     accs = []
     for r in range(ratio):
+        if ckpt is not None and ckpt.has_coset(r):
+            accs.append(packed_to_torch(ckpt.coset(r, None), device))
+            log.info("quotient coset %d/%d (checkpoint)", r + 1, ratio)
+            continue
         shift = dom.g_coset * pow(dom.extended_omega, r, P) % P
         scale = _pow_table(shift, n, dom.k, device)  # shift^j
         cache: dict = {}
@@ -782,17 +1039,17 @@ def _quotient_cosets(
             grp = prefill[i : i + g]
             if len(grp) == 1:
                 t_, p_ = grp[0]
-                cache[t_] = dom.ntt(p_, scale=scale)
+                cache[t_] = _P(dom.ntt(_U(_R(p_)), scale=scale))
                 continue
-            evals = dom.ntt_batch(torch.stack([p_ for _, p_ in grp]), scale=scale)
+            evals = dom.ntt_batch(torch.stack([_U(_R(p_)) for _, p_ in grp]), scale=scale)
             for (t_, _), e_ in zip(grp, evals.unbind(0)):
-                cache[t_] = e_
+                cache[t_] = _P(e_)
             del evals
 
         def col(polyc, tag):
             if tag in cache:
-                return cache[tag]
-            return dom.ntt(polyc, scale=scale)
+                return _U(cache[tag])
+            return dom.ntt(_U(_R(polyc)), scale=scale)
 
         def q(kind, c_, rot):
             e = col(by_kind[kind][c_], (kind, c_))
@@ -824,7 +1081,10 @@ def _quotient_cosets(
         env = None
         cache.clear()
         # the vanishing inverse is constant on this coset
-        accs.append(mm(acc, _bcast(_mont_scalar(vshort[r], device), n)))
+        acc = mm(acc, _bcast(_mont_scalar(vshort[r], device), n))
+        if ckpt is not None:
+            ckpt.coset(r, lambda: _words_host(limbs_to_words(acc)))
+        accs.append(acc)
         del acc
         log.info("quotient coset %d/%d done", r + 1, ratio)
     # interleave: extended position i*ratio + r <-> shift_r * omega^i

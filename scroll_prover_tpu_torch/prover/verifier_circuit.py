@@ -107,6 +107,14 @@ def replay_record(cs, record, n: int, tag: str):
     t0 = time.time()
     log.info("%s assignment replay start", tag)
     fixed, adv, copies, out = record
+    register_copies(cs, copies)
+    log.info("%s assignment replay done: %d copies, %.1fs", tag, len(copies), time.time() - t0)
+    return fixed, adv, out
+
+
+def register_copies(cs, copies) -> None:
+    """Register `copies` on `cs` in their order, at once when `cs` holds
+    none yet."""
     collecting = gc.isenabled()
     gc.disable()
     try:
@@ -125,8 +133,6 @@ def replay_record(cs, record, n: int, tag: str):
     finally:
         if collecting:
             gc.enable()
-    log.info("%s assignment replay done: %d copies, %.1fs", tag, len(copies), time.time() - t0)
-    return fixed, adv, out
 
 
 class VerifierCircuit(Circuit):
@@ -148,7 +154,8 @@ class VerifierCircuit(Circuit):
             assert len(self.inner_instances) >= ACC_CELLS
         self._min_k: int | None = None
         self._record = None  # min_k()'s pass, which assign() takes its tables from
-        self._assign_cache: dict[int, dict] = {}
+        # n -> (tables, the copies their assignment registered)
+        self._assign_cache: dict[int, tuple] = {}
 
     # -- layout ------------------------------------------------------------
 
@@ -218,7 +225,14 @@ class VerifierCircuit(Circuit):
     def assign(self, cs: ConstraintSystem, n: int, instance):
         cached = self._assign_cache.get(n)
         if cached is not None:
-            return cached
+            out, copies = cached
+            if not getattr(cs, "_vc_copies_done", False):
+                # a constraint system that has not seen this circuit's copies
+                # (a second keygen of the same circuit, a mock run): the
+                # record went to the first assignment, its copies stay here
+                register_copies(cs, copies)
+                cs._vc_copies_done = True
+            return out
         # copies are shape-deterministic: when a cached pk's cs already holds
         # them (a fresh VerifierCircuit proving against a cached keygen),
         # drop the duplicates this run registers
@@ -241,12 +255,13 @@ class VerifierCircuit(Circuit):
         )
         for i, c in enumerate(pt_cells):
             cs.copy(self.instance, ACC_CELLS + i, c.col, c.row)
+        copies = cs.copies[copies_start:]
         if had_copies:
             del cs.copies[copies_start:]
         else:
             cs._vc_copies_done = True
         out = {"fixed": fixed, "advice": adv}
-        self._assign_cache[n] = out
+        self._assign_cache[n] = (out, copies)
         return out
 
     def instance_for(self) -> list[list[int]]:

@@ -94,6 +94,19 @@ def chunk_instance(wb: WitnessBlock) -> list[int]:
     ]
 
 
+# rows the EVM word-arithmetic builder places per step, by opcode byte
+# (one lane; the same for every operand). The JAX package counts MUL alone,
+# at 60 rows, so a block of comparisons or divisions outgrows the domain its
+# min_k gives and the builder's region overflows there.
+_WORD_ROWS = {
+    0x02: 101,  # MUL
+    0x04: 193, 0x06: 193,  # DIV, MOD
+    0x10: 135, 0x11: 135,  # LT, GT
+    0x14: 81,  # EQ
+    0x15: 55, 0x19: 50,  # ISZERO, NOT
+}
+
+
 class ScrollSuperCircuit(Circuit):
     def __init__(self, wb: WitnessBlock):
         self.wb = wb
@@ -124,9 +137,9 @@ class ScrollSuperCircuit(Circuit):
             len(wb.rw_rows) + 2,
             len(wb.keccak_events) + 2,
             wb.num_steps + 258,  # +256-row opcode-properties fixed table
-            # evm word-arithmetic builder (~60 rows per MUL step) + its
-            # 256-row range table
-            sum(1 for s in wb.steps if s.op_byte == 0x02 and s.sp >= 0) * 60
+            # evm word-arithmetic builder (its rows per MUL, DIV/MOD, LT/GT,
+            # EQ, ISZERO and NOT step) + its 256-row range table
+            sum(_WORD_ROWS.get(s.op_byte, 0) for s in wb.steps if s.sp >= 0)
             + 320,
             mpt_rows + 2,
             sig_rows + 2,

@@ -21,6 +21,7 @@ from scroll_prover_tpu_torch.proof_system import kzg
 from scroll_prover_tpu_torch.proof_system.plonk import prover as tprover
 from scroll_prover_tpu_torch.integration import prove_and_verify_bundle
 from scroll_prover_tpu_torch.prover import BatchProver, BatchVerifier, BundleProvingTask
+from scroll_prover_tpu_torch.bin import chain_prover
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -67,7 +68,7 @@ def test_chip_smoke_refuses_without_cuda():
 @pytest.mark.parametrize(
     "entry",
     ["generate", "generate_fast", "load", "srs_from_numpy", "tiled_domain", "fast_domain", "poseidon_dev",
-     "prove", "coset_cache_cap", "batch_prover", "batch_verifier", "prove_and_verify_bundle"],
+     "prove", "coset_cache_cap", "batch_prover", "batch_verifier", "prove_and_verify_bundle", "chain_prover"],
 )
 def test_entry_points_refuse_silent_cpu(entry, tmp_path, monkeypatch):
     """Called without device="cpu" on a machine with no card, an entry point
@@ -92,6 +93,7 @@ def test_entry_points_refuse_silent_cpu(entry, tmp_path, monkeypatch):
         "batch_prover": lambda: BatchProver({}),
         "batch_verifier": lambda: BatchVerifier({}),
         "prove_and_verify_bundle": lambda: prove_and_verify_bundle({}, "", BundleProvingTask([])),
+        "chain_prover": lambda: chain_prover.main([]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -127,7 +129,10 @@ def test_every_module_is_listed():
                 "aggregator.batch_header", "aggregator.zstd_decoder", "aggregator.circuits",
                 "curves.bls12_381", "curves.bls12_381_pairing", "gadgets.blob_eval", "native.zstd_codec",
                 "prover.aggregation_circuit", "prover.proofs", "prover.provers", "integration.prove",
-                "evm.interpreter", "evm.verifier_contract", "evm.full_verifier", "evm.harness"):
+                "evm.interpreter", "evm.verifier_contract", "evm.full_verifier", "evm.harness",
+                "proof_system.plonk.checkpoint", "orchestration", "orchestration.settings",
+                "orchestration.clients", "orchestration.builders", "orchestration.prove_utils",
+                "bin.chain_prover", "bin.trace_prover"):
         assert f"scroll_prover_tpu_torch.{mod}" in names, mod
 
 

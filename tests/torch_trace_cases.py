@@ -131,3 +131,34 @@ def trace_dict(num_txs=2, num_logs=30, precompiles=False, signed=False) -> dict:
             ers_from = d["executionResults"][tx["nonce"]]["from"]
             ers_from["address"] = tx["from"]
     return d
+
+
+WORD_OPS = {"MUL": 0x02, "DIV": 0x04, "MOD": 0x06, "LT": 0x10, "GT": 0x11, "EQ": 0x14, "ISZERO": 0x15, "NOT": 0x19}
+
+
+def word_arith_trace_dict(plan) -> dict:
+    """trace_dict(1 transaction) whose program runs the EVM word-arithmetic
+    steps of `plan` (opcode names of WORD_OPS), each on PUSH1 operands and
+    followed by a POP: PUSH1 a, PUSH1 b, OP, POP (PUSH1 a, OP, POP for
+    ISZERO/NOT)."""
+    code = bytearray()
+    logs = []
+
+    def step(op, byte, imm=None):
+        logs.append({"pc": len(code), "op": op, "gas": 100000 - len(code), "gasCost": 3, "depth": 1})
+        code.append(byte)
+        if imm is not None:
+            code.append(imm)
+
+    for i, op in enumerate(plan):
+        if op in ("ISZERO", "NOT"):
+            step("PUSH1", 0x60, i % 3)
+        else:
+            step("PUSH1", 0x60, 7 + i % 50)
+            step("PUSH1", 0x60, 3 + i % 13)
+        step(op, WORD_OPS[op])
+        step("POP", 0x50)
+    d = trace_dict(num_txs=1, num_logs=5)
+    d["executionResults"][0]["byteCode"] = "0x" + code.hex()
+    d["executionResults"][0]["structLogs"] = logs
+    return d

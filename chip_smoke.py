@@ -66,7 +66,7 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      > 0), its peak device memory and peak host RSS; then, after the counts
      are read, K3 against its plain version on the chunk's own densest
      commit group (its points, digits and signs, captured during the
-     prove), K4 on that K3 output, and K2 at every pass the chunk gave it
+     prove), K4 on that K3 output (8 columns), and K2 at every pass the chunk gave it
      (shape, level, stride, tables), with the chunk's own tables;
   6. the chunk's compression ladder at the package's defaults (one builder
      lane, LOOKUP_BITS 12, SPT_LADDER_K 13, SHPLONK): BenchCircuit(4096)
@@ -138,12 +138,20 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      BATCH_LAYER4_PROOF_SHA256 for the blob's envelope byte; the launch counts over this phase alone
      (K1-K5 each > 0); then K2 at every pass that no earlier phase held,
      K3 on a slice of layer 3's densest commit group (2^23 points), K4 on
-     that output and K5 on a slice of layer 3's SRS scalars, each against
-     its plain version, and the per-launch time of K2, K3 and K4 on layer
+     that group's whole slot table and K5 on a slice of layer 3's SRS
+     scalars, each against its plain version, and the per-launch time of K2, K3 and K4 on layer
      3's keygen and prove (CUDA events around each launch) beside its
      bound;
   8. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
+
+K4 (phases 2, 5 and 7, `k4_check`) is also held through its affine points
+against the host fold of the bucket table the reduction before it gave
+(`_host_fold_mont`), and the reduction per call is timed beside that old
+host part. Every `clock:` line logs the MSM's host steps since the clock
+before (`host_step_hook`: `_host_fold_mont` and `_affine_columns`, calls
+and seconds), phase 6b its own; a counted path that calls the host fold,
+or whose K4 takes other than 2 launches per K3 call (one MSM), fails.
 
 It imports torch and the port (scroll_prover_tpu_torch) only.
 """
@@ -158,7 +166,6 @@ import hashlib
 import importlib
 import json
 import logging
-import math
 import os
 import resource
 import subprocess
@@ -185,7 +192,7 @@ KERNELS = {
     "K2": ("ntt_tile", "_ntt_pass_k2", ("k2_ntt_pass",), "ntt.cu", "ntt_tile.py:126"),
     "K3": ("msm_tile", "_accum_k3", ("k3_count", "k3_scan", "k3_scatter", "k3_msm_accum"), "msm.cu",
            "msm_tile.py:531"),
-    "K4": ("msm_tile", "_lane_reduce_k4", ("k4_msm_reduce",), "msm.cu", "msm_tile.py:608"),
+    "K4": ("msm_tile", "_msm_reduce_k4", ("k4_slot_sums", "k4_window_fold"), "msm.cu", "msm_tile.py:608"),
     "K5": ("fixed_base", "_accumulate_k5", ("k5_fixed_base",), "fixed_base.cu", "fixed_base.py:119"),
     "K6": ("msm_tile", "_msm_buckets_lanes_k6", ("k6_msm4_lanes",), "msm4.cu", "msm_tile.py:164"),
     "K7": ("ntt_fast", "_butterfly_k7", ("k7_butterfly",), "ntt_fast.cu", "ntt_fast.py:158"),
@@ -268,9 +275,53 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the MSM's host step after the device work, wrapped by host_step_hook():
+# the host fold of a bucket table (the reduction before K4 folded on the
+# card) and the affine conversion of K4's projective points; calls and
+# seconds of each, taken at every clock()
+HOST_STEPS = ("_host_fold_mont", "_affine_columns")
+HOST = {name: [0, 0.0] for name in HOST_STEPS}
+_HOST_AT_CLOCK = {name: [0, 0.0] for name in HOST_STEPS}
+HOST_ORACLE = {}  # the unwrapped functions, for the checks' own calls
+
+
+def host_step_hook() -> None:
+    """Wrap each of HOST_STEPS that msm_tile defines so that a call adds to
+    HOST; the checks call HOST_ORACLE's originals, which count nothing."""
+    from scroll_prover_tpu_torch.ops import msm_tile as mt
+
+    for name in HOST_STEPS:
+        orig = getattr(mt, name, None)
+        if orig is None:
+            continue
+
+        def timed(*a, _orig=orig, _name=name):
+            t0 = time.perf_counter()
+            out = _orig(*a)
+            HOST[_name][0] += 1
+            HOST[_name][1] += time.perf_counter() - t0
+            return out
+
+        HOST_ORACLE[name] = orig
+        setattr(mt, name, timed)
+
+
+def host_since(mark: dict) -> dict:
+    """{step: [calls, seconds]} since `mark` (a copy of HOST)."""
+    return {name: [HOST[name][0] - mark[name][0], HOST[name][1] - mark[name][1]] for name in HOST_STEPS}
+
+
+def host_mark() -> dict:
+    return {name: list(v) for name, v in HOST.items()}
+
+
 def clock(what: str) -> None:
-    """The script's own seconds so far, at a phase's end."""
-    log(f"clock: {what} at {time.perf_counter() - _T_START:.1f} s")
+    """The script's own seconds so far, at a phase's end, and the MSM's
+    host steps since the clock before."""
+    global _HOST_AT_CLOCK
+    log(f"clock: {what} at {time.perf_counter() - _T_START:.1f} s; MSM host steps since the clock before "
+        f"[calls, seconds]: {json.dumps(host_since(_HOST_AT_CLOCK))}")
+    _HOST_AT_CLOCK = host_mark()
 
 
 def fail(msg: str) -> None:
@@ -385,10 +436,18 @@ def work(key: str, *args):
         live = torch.count_nonzero(digs)
         out_bytes = CW * _slots(n) * (B - 1) * 96
         return 4 * (pts.numel() + digs.numel() + signs.numel()) + out_bytes, live * 11 * MULS_PER_MONT
-    if key == "K4":
+    if key == "K4":  # the adds the function needs, not the kernel's own: the slot tree's
+        # S - 1 per bucket, sum_b b * B_b by running sums (R += B_b, T += R from b = NB
+        # down: 2 (NB - 1) a window, not the scans' 2 x 129), and the fold's W - 1 adds and
+        # (W - 1) c doublings (8 products each) a column; out: a point per column
+        from scroll_prover_tpu_torch.ops.msm_tile import MSM_C, _wb
+
         (tbl,) = args
         CW, S, NB = tbl.shape[:3]
-        return 4 * tbl.numel() + CW * NB * 96, CW * (S - 1) * NB * 12 * MULS_PER_MONT
+        W = _wb(MSM_C)[0]
+        C = CW // W
+        adds = CW * (S - 1) * NB + CW * 2 * (NB - 1) + C * (W - 1)
+        return 4 * tbl.numel() + C * 96, (adds * 12 + C * (W - 1) * MSM_C * 8) * MULS_PER_MONT
     if key == "K5":
         table, digs = args
         nz = torch.count_nonzero(digs)
@@ -541,11 +600,11 @@ def check_kernels(dev, gen):
         lambda: mt._accum_k3(ptw, digs, signs, B),
         lambda: mt._accum_v2_plain(ptw, digs, signs, B), 3)
     record("K3", k_ms, p_ms, max_abs_err(k3o, p3o), ptw, digs, signs, B)
-    # K4 on K3's output: log2(64) = 6 halving launches
-    k_ms, p_ms, ko, po = time_turns(
-        lambda: mt._lane_reduce_k4(k3o), lambda: mt._lane_reduce_plain(k3o), 3)
-    record("K4", k_ms, p_ms, max_abs_err(ko, po), k3o)
-    del k3o, p3o, ko, po
+    # K4 on K3's output (2 columns), down to a point per column in 2 launches
+    k4 = k4_check(k3o, "phase 2")
+    record("K4", k4["ms"], k4["plain_ms"], k4["max_abs_err"], k3o)
+    rows["K4"]["reductions"] = {"phase 2": k4}
+    del k3o, p3o
 
     # K6 on the same points and columns, as its raw per-lane table
     v1 = mt._v1_prep(pts, scal)
@@ -1572,6 +1631,61 @@ def path_inputs(keys=("K2", "K3")):
         yield seen
 
 
+def k4_check(raw, where: str) -> dict:
+    """K4 on a K3 output `raw` (whole columns) against its plain version,
+    limb for limb, its CUDA-event ms beside the bound (and each of its two
+    launches timed alone through its C entry); its affine
+    points against the host fold of the bucket table the reduction before
+    K4's redesign gave (`_lane_reduce_plain` on the card: what its six halving
+    launches gave, bit for bit); and the reduction per call on the host
+    clock: K4 with the (C, 3, 8) readback and `_affine_columns`, beside
+    the old reduction's host part, the (C * 43, 33, 3, 16) table's readback
+    and `_host_fold_mont` per column (the old six launches' device time is
+    in PERF.md, from the tree before). Fails on any difference. Returns
+    the numbers."""
+    from scroll_prover_tpu_torch.fields.limbs import limbs_from_torch
+    from scroll_prover_tpu_torch.ops import cuda_lib
+    from scroll_prover_tpu_torch.ops import msm_tile as mt
+
+    W, B = mt._wb(mt.MSM_C)
+    CW, S = raw.shape[:2]
+    C = CW // W
+    k4_ms, p_ms, ko, po = time_turns(lambda: mt._msm_reduce_k4(raw), lambda: mt._msm_reduce_plain(raw), 3)
+    err = max_abs_err(ko, po)
+    del ko, po
+    b = bound(*work("K4", raw))
+    lib = cuda_lib.lib("msm")
+    sums = torch.empty((CW, B - 1, 3, 8), dtype=raw.dtype, device=raw.device)
+    out = torch.empty((C, 3, 8), dtype=raw.dtype, device=raw.device)
+    slot_ms, rc = event_ms(lambda: lib.spt_msm_slot_sums(
+        sums.data_ptr(), raw.data_ptr(), CW, S, cuda_lib.curve_params(), cuda_lib.stream_ptr(sums)), 3)
+    cuda_lib.check(rc, "K4 msm_slot_sums")
+    fold_k_ms, rc = event_ms(lambda: lib.spt_msm_window_fold(
+        out.data_ptr(), sums.data_ptr(), C, W, mt.MSM_C, cuda_lib.curve_params(), cuda_lib.stream_ptr(out)), 3)
+    cuda_lib.check(rc, "K4 msm_window_fold")
+    torch.cuda.synchronize()
+    del sums, out
+    affine = HOST_ORACLE["_affine_columns"]
+    new_ms, got = wall_ms(lambda: affine(mt._msm_reduce_k4(raw).cpu().numpy()))
+    old = mt._bucket_table(mt._lane_reduce_plain(raw))
+    read_ms, tbl = wall_ms(lambda: limbs_from_torch(old).reshape(C, W, B, 3, 16))
+    fold_ms, want = wall_ms(lambda: [HOST_ORACLE["_host_fold_mont"](t, mt.MSM_C) for t in tbl])
+    out = {"shape": list(raw.shape), "columns": C, "ms": k4_ms, "plain_ms": p_ms, "bound_ms": b[0],
+           "bound_by": b[1], "max_abs_err": err, "slot_sums_ms": slot_ms, "window_fold_ms": fold_k_ms,
+           "reduction_wall_ms": new_ms, "old_readback_ms": read_ms,
+           "old_host_fold_ms": fold_ms, "readback_bytes": 96 * C, "old_readback_bytes": tbl.nbytes}
+    log(f"K4 at {where}'s shape {tuple(raw.shape)} ({C} columns): {k4_ms:.4f} ms by CUDA events (2 launches: "
+        f"slot sums {slot_ms:.4f} ms, window sums and fold {fold_k_ms:.4f} ms, each timed alone), "
+        f"bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / k4_ms:.1f}% of bound; plain {p_ms:.1f} ms; vs plain "
+        f"version: max_abs_err {err}; the reduction per call, host clock: K4 + {96 * C} B readback + affine "
+        f"{new_ms:.2f} ms; the old host part: {tbl.nbytes} B readback {read_ms:.2f} ms + host fold {fold_ms:.2f} ms")
+    if err != 0:
+        fail(f"K4 disagrees with its plain version at {where}'s shape")
+    if got != want:
+        fail(f"K4's affine points differ from the host fold of the old bucket table at {where}'s shape")
+    return out
+
+
 def chunk_kernel_checks(seen, dev, gen, where: str = "the chunk") -> dict:
     """Run after phase 5's (or 6's) launch counts are read. Holds K3 against
     its plain version on the captured commit group (the path's own points,
@@ -1600,12 +1714,10 @@ def chunk_kernel_checks(seen, dev, gen, where: str = "the chunk") -> dict:
         f"by CUDA events, bound {b3[0]:.3f} ms ({b3[1]}); vs plain version ({p_ms / 1e3:.1f} s wall, "
         f"{step} rows a call): max_abs_err {errs['K3']}")
     del pts, digs, signs
-    k4_ms, red = event_ms(lambda: mt._lane_reduce_k4(raw), 2)
-    b4 = bound(*work("K4", raw))
-    errs["K4"] = max_abs_err(red, mt._lane_reduce_plain(raw))
-    log(f"K4 on that K3 output {tuple(raw.shape)}: {k4_ms:.4f} ms by CUDA events ({int(math.log2(raw.shape[1]))} "
-        f"launches), bound {b4[0]:.4f} ms ({b4[1]}); vs plain version: max_abs_err {errs['K4']}")
-    del raw, red
+    k4 = k4_check(raw, where)
+    errs["K4"] = k4["max_abs_err"]
+    seen["k4"] = k4
+    del raw
     errs["K2"] = k2_pass_checks(seen["k2"], dev, gen, where)
     for key, err in errs.items():
         if err != 0:
@@ -1618,12 +1730,15 @@ def counted(keys, fn):
     just after; then the counts found before are put back, so that a phase
     around a counted step leaves the step's launches out. Returns (fn's
     result, {key: launches during fn}, {key: {mode: launches}} for K1's
-    modes). Fails if one stayed at 0."""
+    modes). Fails if one stayed at 0, if K4 took other than 2 launches a
+    K3 call (one MSM), or if fn called the host fold `_host_fold_mont`."""
     counters = {key: wrapper(key) for key in keys}
     saved = {key: (c.launches, dict(getattr(c, "by_mode", {}))) for key, c in counters.items()}
     for c in counters.values():
         reset_counts(c)
+    host0 = host_mark()
     out = fn()
+    host = host_since(host0)
     launches = {key: c.launches for key, c in counters.items()}
     by_mode = {key: dict(c.by_mode) for key, c in counters.items() if hasattr(c, "by_mode")}
     for key, c in counters.items():
@@ -1633,6 +1748,10 @@ def counted(keys, fn):
     missing = [key for key, v in launches.items() if not v]
     if missing:
         fail(f"the path never launched {missing}")
+    if "K4" in launches and launches["K4"] != 2 * launches["K3"]:  # every MSM call: one K3, one K4 (2 launches)
+        fail(f"K4 launched {launches['K4']} times for {launches['K3']} MSM calls, not 2 a call")
+    if host["_host_fold_mont"][0]:
+        fail(f"the path called the host fold _host_fold_mont {host['_host_fold_mont'][0]} times")
     return out, launches, by_mode
 
 
@@ -1790,6 +1909,7 @@ def evm_tail(prover, p1, vk1, circ1, l1_stats, dev, rows) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_step = time.perf_counter()
+    host0 = host_mark()
     secs = {}
     keys = [key for key, (_pk, vk) in prover._kg._cache.items() if vk is vk1]
     if len(keys) != 1:
@@ -1954,6 +2074,7 @@ def evm_tail(prover, p1, vk1, circ1, l1_stats, dev, rows) -> dict:
             fail(f"phase 6b: the EVM verifier charged {got} gas for a call with a {name} instead of reverting")
         negatives[name] = "reverted"
     secs["step"] = time.perf_counter() - t_step
+    log(f"phase 6b: MSM host steps [calls, seconds]: {json.dumps(host_since(host0))}")
     digests = {"proof": hashlib.sha256(proof).hexdigest(), "evm_verifier.bin": hashlib.sha256(code).hexdigest()}
     stats.update({
         "k": vk1.k, "instances": len(inst[0]), "proof_bytes": len(proof), "bytecode_bytes": len(code),
@@ -2202,7 +2323,10 @@ def batch(chunk, params_map, dev, gen, rows, held_k2):
                 if rank > k3["rank"]:
                     k3["rank"] = rank
                     k3["args"] = (pts, digs[:BATCH_K3_ROWS].cpu(), signs[:BATCH_K3_ROWS].cpu(), B, tuple(digs.shape))
+                    k3["take_k4"] = True
                 hook_s["K3 digit counts"] += time.perf_counter() - t0
+            elif key == "K4" and k3.pop("take_k4", False):  # that group's slot table, whole (tens of MiB)
+                k3["k4_in"] = a[0].clone()
             start = torch.cuda.Event(enable_timing=True)
             start.record()
             pending[key] = (start, w)
@@ -2355,13 +2479,10 @@ def batch(chunk, params_map, dev, gen, rows, held_k2):
     log(f"K3 on {tuple(digs.shape)} of layer 3's densest commit group {full} ({k3['rank'][1]} non-zero digits in "
         f"the group): {k3_ms:.3f} ms by CUDA events, bound {b3[0]:.3f} ms ({b3[1]}); vs plain version "
         f"({p_ms / 1e3:.1f} s wall): max_abs_err {errs['K3']}")
-    del plain, pts, digs, signs
-    k4_ms, red = event_ms(lambda: mt._lane_reduce_k4(raw), 3)
-    b4 = bound(*work("K4", raw))
-    errs["K4"] = max_abs_err(red, mt._lane_reduce_plain(raw))
-    log(f"K4 on that K3 output {tuple(raw.shape)}: {k4_ms:.4f} ms by CUDA events, bound {b4[0]:.4f} ms "
-        f"({b4[1]}); vs plain version: max_abs_err {errs['K4']}")
-    del raw, red
+    del plain, pts, digs, signs, raw
+    k4 = k4_check(k3.pop("k4_in"), "layer 3's densest commit group")
+    errs["K4"] = k4["max_abs_err"]
+    rows["K4"]["reductions"]["layer 3"] = k4
     new = {key: v for key, v in passes.items() if key not in held_k2}
     log(f"batch: K2 gave {len(passes)} distinct passes, {len(new)} of them not held in earlier phases")
     errs["K2"] = k2_pass_checks(new, dev, gen, "the batch")
@@ -2406,6 +2527,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     built = cuda_lib.build_all()
+    host_step_hook()
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)} (parallel nvcc)")
     for name, text in sorted(cuda_lib.BUILD_LOG.items()):
         for line in text.splitlines():
@@ -2488,6 +2610,7 @@ def main() -> None:
         log(f"chunk launches: {json.dumps(chunk_launches)}; K1 by mode: {json.dumps(chunk_modes)}")
         for key, err in chunk_kernel_checks(seen, dev, gen).items():
             rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+        rows["K4"]["reductions"]["the chunk"] = seen["k4"]
         held_k2 |= frozenset(seen["k2"])
         del seen
         if args.profile:  # two more chunk proves, profiled, after the counts are read

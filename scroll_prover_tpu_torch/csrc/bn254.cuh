@@ -9,12 +9,12 @@
 // PyTorch version.
 //
 // The curve formulas are Renes-Costello-Batina 2015 (a = 0, b3 = 9):
-// alg. 8 mixed add (`madd`) and alg. 7 complete add (`padd`), transcribed
-// step for step from ops/ec.py so projective coordinates match exactly. The
-// two products by b3 per add are four modular additions here (`mul_b3`):
-// the same canonical value as ops/ec.py's product with 9R, so the mixed add
-// makes 11 Montgomery products instead of 13 and the complete add 12
-// instead of 14.
+// alg. 8 mixed add (`madd`), alg. 7 complete add (`padd`) and alg. 9
+// doubling (`pdbl`), transcribed step for step from ops/ec.py so projective
+// coordinates match exactly. The products by b3 are four modular additions
+// here (`mul_b3`): the same canonical value as ops/ec.py's product with 9R,
+// so the mixed add makes 11 Montgomery products instead of 13, the complete
+// add 12 instead of 14 and the doubling 8 instead of 9.
 #pragma once
 
 #include <cstdint>
@@ -396,6 +396,34 @@ __device__ __forceinline__ Pt padd(const Pt& p, const Pt& q, const CurveParams& 
   t0 = mont_mul(t0, t3, f);
   z3 = mont_mul(z3, t4, f);
   z3 = add_mod(z3, t0, f);
+  Pt r;
+  r.x = x3;
+  r.y = y3;
+  r.z = z3;
+  return r;
+}
+
+// RCB15 alg. 9: complete projective 2p (ops/ec.py `double`, 8 products)
+__device__ __forceinline__ Pt pdbl(const Pt& p, const CurveParams& cv) {
+  const FieldParams& f = cv.fq;
+  Fe t0 = mont_mul(p.y, p.y, f);
+  Fe z3 = add_mod(t0, t0, f);
+  z3 = add_mod(z3, z3, f);
+  z3 = add_mod(z3, z3, f);
+  Fe t1 = mont_mul(p.y, p.z, f);
+  Fe t2 = mont_mul(p.z, p.z, f);
+  t2 = mul_b3(t2, f);
+  Fe x3 = mont_mul(t2, z3, f);
+  Fe y3 = add_mod(t0, t2, f);
+  z3 = mont_mul(t1, z3, f);
+  t1 = add_mod(t2, t2, f);
+  t2 = add_mod(t1, t2, f);
+  t0 = sub_mod(t0, t2, f);
+  y3 = mont_mul(t0, y3, f);
+  y3 = add_mod(x3, y3, f);
+  t1 = mont_mul(p.x, p.y, f);
+  x3 = mont_mul(t0, t1, f);
+  x3 = add_mod(x3, x3, f);
   Pt r;
   r.x = x3;
   r.y = y3;

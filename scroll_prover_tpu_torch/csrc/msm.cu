@@ -1,7 +1,9 @@
-// K3 and K4: Pippenger bucket accumulation and bucket reduction over G1.
+// K3 and K4: Pippenger bucket accumulation and the reduction to one point per
+// column over G1.
 //
 // K3 replaces the JAX package's ops/msm_tile.py `_msm_accum_kernel` (called through
-// `_accum_v2`); K4 replaces `_lane_reduce_kernel` (called through `_lane_reduce_v2`).
+// `_accum_v2`); K4 replaces `_lane_reduce_kernel` (called through `_lane_reduce_v2`)
+// together with the host fold `_host_fold_mont` that followed it there.
 //
 // K3 sorts, then accumulates with every bucket in registers; no bucket
 // table lives in device memory. Four kernels on one stream, one wrapper call:
@@ -27,13 +29,35 @@
 //               beat one and two, and eight gained nothing).
 // Digit 0 lands in no run. Points come from a packed affine table, (n, 2, 8)
 // 32-bit words: four 16-byte loads each.
-// K4: one halving round per launch; thread (cw, j) adds slot point j and
-// j + S/2 (complete projective add). log2(S) launches leave one bucket
-// table per cw.
+//
+// K4 takes K3's (C * W, S, 32) slot table to one projective point per column
+// in two kernels, every add a complete one (no branch on the data), in the
+// order of its plain version (ops/msm_tile.py `_msm_reduce_plain`):
+//   k4_slot_sums    block per (cw, 4 buckets), 32 threads a bucket: thread
+//                   s < S/2 loads slots s and s + S/2 with 16-byte loads and
+//                   adds them into shared memory, then the block halves in
+//                   place (slot s adds slot s + h for h = S/4, ..., 1: the
+//                   tree of `_lane_reduce_plain`), each round on its lowest
+//                   threads, so the idle ones are whole warps until the last
+//                   rounds -> bucket sums (C * W, 32) in a small scratch table;
+//   k4_window_fold  block per column: warp per window, lane b holding bucket
+//                   b + 1, sum_b b * B_b by two Hillis-Steele scans of five
+//                   shuffle steps each (a suffix scan, then a prefix scan:
+//                   ops/msm.py `_weighted_windows`), the window sums in shared
+//                   memory; then one thread folds them from the most
+//                   significant down, c doublings and one add per window
+//                   (ops/msm.py `_fold_windows`).
+// Of the table only 96 B a column goes back to the host, which converts it
+// to affine with one inversion. The slot tree is bound by operations and
+// keeps the card busy (CW * 8 blocks of 128 threads); the window scans and
+// the fold are dependent chains (10 adds per window, ~300 point operations
+// per column) that sit far below any throughput bound, short beside the
+// host fold they replace.
 //
 // Layout: pts (n, 2, 8) words; digits, signs (CW, n) int32; buckets
 // (CW, S, 32, 3, 8) int32 words; scratch perm (CW, n), cnt (CW, 32, tiles),
-// run (CW, 32, 2) int32.
+// run (CW, 32, 2) int32; K4's bucket sums (CW, 32, 3, 8) and its output
+// (C, 3, 8) words.
 //
 // Bound on the H100: operations. Each live digit costs one mixed add, whose
 // 11 Montgomery products the bound counts exactly (b3 = 9 is multiplied by
@@ -187,26 +211,119 @@ __global__ void __launch_bounds__(K3_ACC_BLOCK, 2) k3_msm_accum(
   o[5] = make_uint4(sum.z.w[4], sum.z.w[5], sum.z.w[6], sum.z.w[7]);
 }
 
-__global__ void __launch_bounds__(128) k4_msm_reduce(
-    int32_t* __restrict__ out, const int32_t* __restrict__ in, long long CW, long long HN,
-    CurveParams cv) {
-  long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= CW * HN) return;
-  long long cw = g / HN, j = g % HN;
-  const int32_t* a = in + (cw * 2 * HN + j) * PT_WORDS;
-  const int32_t* b = a + HN * PT_WORDS;
-  Pt p, q;
-  p.x = load_words(a);
-  p.y = load_words(a + 8);
-  p.z = load_words(a + 16);
-  q.x = load_words(b);
-  q.y = load_words(b + 8);
-  q.z = load_words(b + 16);
-  Pt r = padd(p, q, cv);
-  int32_t* o = out + g * PT_WORDS;
-  store_words(o, r.x);
-  store_words(o + 8, r.y);
-  store_words(o + 16, r.z);
+constexpr int K4_SLOT_BUCKETS = 4;                 // buckets per block of the slot tree
+constexpr int K4_SLOT_THREADS = 32 * K4_SLOT_BUCKETS;  // 32 threads a bucket: S / 2 <= 32
+constexpr int K4_FOLD_WARPS = 8;                   // windows scanned at once per column
+constexpr int K4_MAX_W = 64;                       // windows a column may have (43 for c = 6)
+
+__device__ __forceinline__ Pt load_pt(const int32_t* src) {
+  Pt p;
+  p.x = load_words(src);
+  p.y = load_words(src + 8);
+  p.z = load_words(src + 16);
+  return p;
+}
+
+__device__ __forceinline__ void store_pt(int32_t* dst, const Pt& p) {
+  store_words(dst, p.x);
+  store_words(dst + 8, p.y);
+  store_words(dst + 16, p.z);
+}
+
+// point i of a word-major shared table of n points (word j at sm[j * n + i]:
+// neighbouring points in neighbouring banks)
+__device__ __forceinline__ Pt smem_pt(const uint32_t* sm, int n, int i) {
+  Pt p;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    p.x.w[j] = sm[j * n + i];
+    p.y.w[j] = sm[(8 + j) * n + i];
+    p.z.w[j] = sm[(16 + j) * n + i];
+  }
+  return p;
+}
+
+__device__ __forceinline__ void smem_put(uint32_t* sm, int n, int i, const Pt& p) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    sm[j * n + i] = p.x.w[j];
+    sm[(8 + j) * n + i] = p.y.w[j];
+    sm[(16 + j) * n + i] = p.z.w[j];
+  }
+}
+
+// the point of lane + d (down) or lane - d (up); a lane without one gets its own
+__device__ __forceinline__ Pt shfl_pt(const Pt& p, int d, bool down) {
+  const unsigned FULL = 0xFFFFFFFFu;
+  Pt r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    r.x.w[j] = down ? __shfl_down_sync(FULL, p.x.w[j], d) : __shfl_up_sync(FULL, p.x.w[j], d);
+    r.y.w[j] = down ? __shfl_down_sync(FULL, p.y.w[j], d) : __shfl_up_sync(FULL, p.y.w[j], d);
+    r.z.w[j] = down ? __shfl_down_sync(FULL, p.z.w[j], d) : __shfl_up_sync(FULL, p.z.w[j], d);
+  }
+  return r;
+}
+
+// block (cw, K4_SLOT_BUCKETS buckets): thread (bucket bl, s < S/2) loads
+// slots s and s + S/2 and adds them into shared memory, then each halving
+// h = S/4, ..., 1 runs on the lowest h threads of each bucket, slot s adding
+// slot s + h in place (no thread reads a slot another writes in its round)
+__global__ void __launch_bounds__(K4_SLOT_THREADS) k4_slot_sums(
+    int32_t* __restrict__ sums, const int32_t* __restrict__ tbl, int S, CurveParams cv) {
+  __shared__ uint32_t part[PT_WORDS * K4_SLOT_THREADS];  // bucket bl's slot s at bl * 32 + s
+  const long long cw = blockIdx.x / (NB / K4_SLOT_BUCKETS);
+  const int b0 = (int)(blockIdx.x % (NB / K4_SLOT_BUCKETS)) * K4_SLOT_BUCKETS;
+  const int t = threadIdx.x;
+  int h = S >> 1;
+  const int w1 = h ? h : 1;  // threads a bucket in the first halving
+  if (t < w1 * K4_SLOT_BUCKETS) {
+    const int bl = t / w1, s = t % w1;
+    const int32_t* base = tbl + ((cw * S + s) * NB + b0 + bl) * PT_WORDS;
+    Pt v = load_pt(base);
+    if (h) v = padd(v, load_pt(base + (long long)h * NB * PT_WORDS), cv);
+    smem_put(part, K4_SLOT_THREADS, bl * 32 + s, v);
+  }
+  for (h >>= 1; h >= 1; h >>= 1) {
+    __syncthreads();
+    if (t < h * K4_SLOT_BUCKETS) {
+      const int i = (t / h) * 32 + t % h;
+      smem_put(part, K4_SLOT_THREADS, i,
+               padd(smem_pt(part, K4_SLOT_THREADS, i), smem_pt(part, K4_SLOT_THREADS, i + h), cv));
+    }
+  }
+  __syncthreads();
+  if (t < K4_SLOT_BUCKETS)
+    store_pt(sums + (cw * NB + b0 + t) * PT_WORDS, smem_pt(part, K4_SLOT_THREADS, t * 32));
+}
+
+// block per column: warp per window (lane b holding bucket b + 1) scans
+// sum_b b * B_b into shared memory, then thread 0 folds the windows
+__global__ void __launch_bounds__(32 * K4_FOLD_WARPS) k4_window_fold(
+    int32_t* __restrict__ out, const int32_t* __restrict__ sums, int W, int c, CurveParams cv) {
+  __shared__ uint32_t win[PT_WORDS * K4_MAX_W];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long col = blockIdx.x;
+  for (int w = warp; w < W; w += K4_FOLD_WARPS) {
+    Pt v = load_pt(sums + ((col * W + w) * NB + lane) * PT_WORDS);
+    for (int s = 1; s < 32; s <<= 1) {  // suffix sums: lane b adds lane b + s
+      const Pt t = padd(v, shfl_pt(v, s, true), cv);
+      if (lane + s < 32) v = t;
+    }
+    for (int s = 1; s < 32; s <<= 1) {  // their prefix sums: lane b adds lane b - s
+      const Pt t = padd(v, shfl_pt(v, s, false), cv);
+      if (lane >= s) v = t;
+    }
+    if (lane == 31) smem_put(win, K4_MAX_W, w, v);  // sum_b b * B_b
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  Pt acc = pt_identity(cv);
+  for (int w = W - 1; w >= 0; --w) {
+    for (int i = 0; i < c; ++i) acc = pdbl(acc, cv);
+    acc = padd(acc, smem_pt(win, K4_MAX_W, w), cv);
+  }
+  store_pt(out + col * PT_WORDS, acc);
 }
 
 extern "C" int spt_msm_accum(int32_t* buckets, const int32_t* pts, const int32_t* digs,
@@ -226,10 +343,17 @@ extern "C" int spt_msm_accum(int32_t* buckets, const int32_t* pts, const int32_t
   return (int)cudaGetLastError();
 }
 
-extern "C" int spt_msm_reduce(int32_t* out, const int32_t* in, long long CW, long long HN,
-                              CurveParams cv, void* stream) {
-  const int threads = 128;
-  k4_msm_reduce<<<grid_for(CW * HN, threads), threads, 0, (cudaStream_t)stream>>>(
-      out, in, CW, HN, cv);
+extern "C" int spt_msm_slot_sums(int32_t* sums, const int32_t* tbl, long long CW, int S, CurveParams cv,
+                                 void* stream) {
+  if (S < 1 || S > 2 * 32) return (int)cudaErrorInvalidValue;
+  k4_slot_sums<<<(unsigned)(CW * (NB / K4_SLOT_BUCKETS)), K4_SLOT_THREADS, 0, (cudaStream_t)stream>>>(
+      sums, tbl, S, cv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spt_msm_window_fold(int32_t* out, const int32_t* sums, long long C, int W, int c, CurveParams cv,
+                                   void* stream) {
+  if (W > K4_MAX_W) return (int)cudaErrorInvalidValue;
+  k4_window_fold<<<(unsigned)C, 32 * K4_FOLD_WARPS, 0, (cudaStream_t)stream>>>(out, sums, W, c, cv);
   return (int)cudaGetLastError();
 }

@@ -142,7 +142,8 @@ _SIGS = {
     },
     "msm": {
         "spt_msm_accum": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _INT, CurveParams, _VP],
-        "spt_msm_reduce": [_VP, _VP, _LL, _LL, CurveParams, _VP],
+        "spt_msm_slot_sums": [_VP, _VP, _LL, _INT, CurveParams, _VP],
+        "spt_msm_window_fold": [_VP, _VP, _LL, _INT, _INT, CurveParams, _VP],
     },
     "fixed_base": {"spt_fixed_base": [_VP, _VP, _VP, _LL, CurveParams, _VP]},
     "msm4": {"spt_msm4_lanes": [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, CurveParams, _VP]},

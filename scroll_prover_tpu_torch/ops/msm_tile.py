@@ -1,6 +1,6 @@
 """Bucket MSMs over BN254 G1: the JAX package's v2 pipeline (kernels K3 and
-K4, the host-side digit prep and the host window fold) and its v1 pipeline
-(kernel K6, the lane reduction and the folds).
+K4, the host-side digit prep; the JAX package's host window fold moved into
+K4) and its v1 pipeline (kernel K6, the lane reduction and the folds).
 
 v2, the pipeline kzg_commit uses:
 
@@ -14,18 +14,24 @@ v2, the pipeline kzg_commit uses:
                        registers (y negated by the sign), and slots s,
                        s + S, s + 2S, s + 3S fold into s -> per-slot
                        buckets (CW, S, B-1, 3, 8) words, S <= 64 slots
-    K4 `_lane_reduce`: log2(S) halving rounds of complete projective adds
-                       -> one bucket table (CW, B, 3, 16) limbs
-    host `_host_fold_mont`: suffix sums and the window fold on Python ints,
-                       one inversion at the end -> affine point.
+    K4 `_msm_reduce`:  the slot tree (log2(S) halvings of complete
+                       projective adds per bucket), the window sums
+                       sum_b b * B_b by two Hillis-Steele scans, and the
+                       window fold (c doublings and one add per window, most
+                       significant first) -> one projective point per column
+                       (C, 3, 8) words, two launches on the card
+    host `_affine_columns`: a (C, 3, 8) readback, one inversion a column ->
+                       affine points.
 
 Blocks on Hopper run in no order, so no bucket is carried from block to
 block as the TPU kernel carried its VMEM buckets along the sequential grid:
 every (cw, slot, bucket) owns its bucket, and K4 sums the slots in a fixed
 tree. The order of additions is the same in the kernels and their plain
-versions (per (cw, slot, bucket), ascending point index), so their
-projective buckets agree exactly; the folded affine point agrees with the
-JAX package and with host Pippenger.
+versions (per (cw, slot, bucket), ascending point index; K4's tree, scans
+and fold as `_msm_reduce_plain` does them), so their projective points
+agree exactly; the affine point agrees with the JAX package (which folds
+the bucket table on the host, `_host_fold_mont`, kept here as the tests'
+oracle) and with host Pippenger.
 
 v1 (`msm_tile`, `msm_tile_host`, `msm_tile_host_batch`): signed 4-bit digits
 (64 windows x 9 buckets); point i goes to lane i mod LANES (LANES = SUB_T x
@@ -53,7 +59,7 @@ from .msm import B4, C4, W4, _fold_windows, _signed_digits4, _weighted_windows
 
 FQ = FQ_LIMB
 MSM_C = 6  # signed 6-bit windows: 43 windows x 33 buckets
-K3_MAX_SLOTS = 64  # S: slots per bucket run, so K4 takes log2(S) <= 6 rounds
+K3_MAX_SLOTS = 64  # S: slots per bucket run, so K4's slot tree takes log2(S) <= 6 rounds
 K3_MIN_POINTS = 1024  # column points per slot at the least (S = 64 from n = 2^16 up)
 K3_TILE = 4096  # points per counting-sort tile (csrc/msm.cu)
 K3_FOLD = 4  # accumulating slots per output slot (csrc/msm.cu)
@@ -210,11 +216,11 @@ def _accum_v2(pts, digs, signs, B: int):
     return _accum_v2_plain(pts, digs, signs, B)
 
 
-# --- K4: slot reduction -----------------------------------------------------
+# --- K4: from the per-slot buckets to one point per column -------------------
 
 
 def _lane_reduce_plain(tbl):
-    """Plain K4: (CW, S, NB, 3, 8) words -> (CW, 1, NB, 3, 8) by halving
+    """The slot tree: (CW, S, NB, 3, 8) words -> (CW, 1, NB, 3, 8) by halving
     rounds tbl[:, :h] + tbl[:, h:] of complete projective adds."""
     while tbl.shape[1] > 1:
         h = tbl.shape[1] // 2
@@ -227,48 +233,153 @@ def _lane_reduce_plain(tbl):
     return tbl
 
 
-def _lane_reduce_k4(tbl):
-    """K4 wrapper: each halving round is one launch, one thread per
-    (cw, s, bucket) summing slots s and s + S/2.
-
-    Replaces ops/msm_tile.py `_lane_reduce_kernel` (called through
-    `_lane_reduce_v2`) of the JAX package. Launch count:
-    `_lane_reduce_k4.launches`."""
-    if not tbl.is_cuda or tbl.dtype != LIMB_DTYPE or tbl.shape[3:] != (3, 8):
-        raise ValueError("_lane_reduce_k4 takes (CW, S, NB, 3, 8) int32 CUDA words")
-    CW, S = tbl.shape[:2]
-    if S & (S - 1):
-        raise ValueError("K4 needs a power-of-two slot count")
-    lib = cuda_lib.lib("msm")
-    tbl = tbl.contiguous()
-    while S > 1:
-        h = S // 2
-        out = torch.empty((CW, h) + tuple(tbl.shape[2:]), dtype=LIMB_DTYPE, device=tbl.device)
-        rc = lib.spt_msm_reduce(
-            out.data_ptr(), tbl.data_ptr(), CW, h * tbl.shape[2],
-            cuda_lib.curve_params(), cuda_lib.stream_ptr(out),
-        )
-        cuda_lib.check(rc, "K4 msm_reduce")
-        _lane_reduce_k4.launches += 1
-        tbl, S = out, h
-    return tbl
-
-
-_lane_reduce_k4.launches = 0
-
-
-def _lane_reduce_v2(tbl):
-    """(CW, S, B-1, 3, 8) per-slot bucket words -> (CW, B, 3, 16) limb
-    table with bucket 0 the identity (0, 1, 0) (the fold never reads it)."""
-    red = _lane_reduce_k4(tbl) if tbl.is_cuda else _lane_reduce_plain(tbl)
+def _bucket_table(red):
+    """(CW, 1, B-1, 3, 8) bucket-sum words -> (CW, B, 3, 16) limb table with
+    bucket 0 the identity (0, 1, 0), the layout `_host_fold_mont` reads
+    (bucket 0 is never read): the old reduction's table, for the checks."""
     limbs = words_to_limbs(red[:, 0])  # (CW, NB, 3, 16)
     ident = torch.stack(list(ec.identity((limbs.shape[0],), device=limbs.device)), dim=1)
     return torch.cat([ident[:, None], limbs], dim=1)
 
 
-# --- host projective fold (Montgomery in, one inversion out) -------------
+def _msm_reduce_plain(tbl):
+    """Plain K4: (C * W, S, B-1, 3, 8) per-slot bucket words -> (C, 3, 8)
+    projective words, one point per column: the slot tree in torch
+    (`_lane_reduce_plain`, K4's first kernel), then the window sums and the
+    window fold on host ints (`_window_fold_host`, its second: ~11,000
+    dependent point adds a column, which as batched torch calls on a CPU
+    cost seconds a call)."""
+    W, B = _wb(MSM_C)
+    C = tbl.shape[0] // W
+    sums = _lane_reduce_plain(tbl).cpu().numpy().reshape(C, W, B - 1, 3, 8)
+    return torch.from_numpy(_window_fold_host(sums, MSM_C)).to(tbl.device)
+
+
+def _msm_reduce_k4(tbl):
+    """K4 wrapper: two launches, the slot tree (a block per column-window
+    and four buckets) into a (C * W, B-1) bucket-sum scratch, then the
+    window sums and the window fold (a block per column) -> (C, 3, 8)
+    projective words.
+
+    Replaces ops/msm_tile.py `_lane_reduce_kernel` (called through
+    `_lane_reduce_v2`) and the host fold `_host_fold_mont` after it, of the
+    JAX package. Launch count: `_msm_reduce_k4.launches`, two a call."""
+    W, B = _wb(MSM_C)
+    if tbl.dtype != LIMB_DTYPE or tbl.dim() != 5 or tbl.shape[2:] != (B - 1, 3, 8):
+        raise ValueError(f"_msm_reduce_k4 takes (C * {W}, S, {B - 1}, 3, 8) int32 words")
+    CW, S = tbl.shape[:2]
+    if CW % W:
+        raise ValueError(f"K4 takes whole columns: {CW} column-windows is no multiple of {W}")
+    if S < 1 or S & (S - 1) or S > K3_MAX_SLOTS:
+        raise ValueError(f"K4 takes a power-of-two slot count up to {K3_MAX_SLOTS}, not {S}")
+    if not tbl.is_cuda:
+        raise ValueError("_msm_reduce_k4 launches K4 on the card: a CPU table goes to _msm_reduce_plain")
+    tbl = tbl.contiguous()
+    if tbl.data_ptr() % 16:
+        raise ValueError("K4 reads the slot table with 16-byte loads: it must be 16-byte aligned")
+    C = CW // W
+    out = torch.empty((C, 3, 8), dtype=LIMB_DTYPE, device=tbl.device)
+    lib = cuda_lib.lib("msm")
+    sums = torch.empty((CW, B - 1, 3, 8), dtype=LIMB_DTYPE, device=tbl.device)
+    rc = lib.spt_msm_slot_sums(sums.data_ptr(), tbl.data_ptr(), CW, S, cuda_lib.curve_params(),
+                               cuda_lib.stream_ptr(sums))
+    cuda_lib.check(rc, "K4 msm_slot_sums")
+    _msm_reduce_k4.launches += 1
+    rc = lib.spt_msm_window_fold(out.data_ptr(), sums.data_ptr(), C, W, MSM_C, cuda_lib.curve_params(),
+                                 cuda_lib.stream_ptr(out))
+    cuda_lib.check(rc, "K4 msm_window_fold")
+    _msm_reduce_k4.launches += 1
+    return out
+
+
+_msm_reduce_k4.launches = 0
+
+
+def _msm_reduce(tbl):
+    """(C * W, S, B-1, 3, 8) per-slot bucket words -> (C, 3, 8) projective
+    words, one point per column."""
+    return _msm_reduce_k4(tbl) if tbl.is_cuda else _msm_reduce_plain(tbl)
+
+
+# --- host side: the plain window fold and the affine conversion on Python
+# ints, and the bucket table's fold (the JAX package's reduction after its
+# lane kernel; off the card's path since K4 folds there, kept as the tests'
+# and chip_smoke.py's oracle)
 
 _R_INV = pow(1 << 256, -1, FQ_MOD)
+_R = (1 << 256) % FQ_MOD
+
+
+def _proj_add(a, b):
+    """Complete projective add (RCB15 alg. 7, a = 0, b3 = 9) on standard-form
+    ints: the formulas of ops/ec.py `add`, so the same point, word for word."""
+    P = FQ_MOD
+    (X1, Y1, Z1), (X2, Y2, Z2) = a, b
+    t0 = X1 * X2 % P
+    t1 = Y1 * Y2 % P
+    t2 = Z1 * Z2 % P
+    t3 = ((X1 + Y1) * (X2 + Y2) - t0 - t1) % P
+    t4 = ((Y1 + Z1) * (Y2 + Z2) - t1 - t2) % P
+    y3 = ((X1 + Z1) * (X2 + Z2) - t0 - t2) % P
+    x3 = 3 * t0 % P
+    t2b = 9 * t2 % P
+    z3 = (t1 + t2b) % P
+    t1b = (t1 - t2b) % P
+    y3b = 9 * y3 % P
+    return (t3 * t1b - t4 * y3b) % P, (t1b * z3 + y3b * x3) % P, (t4 * z3 + t3 * x3) % P
+
+
+def _proj_dbl(a):
+    """Complete projective doubling (RCB15 alg. 9, a = 0, b3 = 9) on
+    standard-form ints: the formulas of ops/ec.py `double`."""
+    P = FQ_MOD
+    X, Y, Z = a
+    t0 = Y * Y % P
+    z3 = 8 * t0 % P
+    t2 = 9 * Z * Z % P
+    x3 = t2 * z3 % P
+    y3 = (t0 + t2) % P
+    z3 = Y * Z % P * z3 % P
+    t0 = (t0 - 3 * t2) % P
+    return 2 * t0 * (X * Y % P) % P, (t0 * y3 + x3) % P, z3
+
+
+def _words_to_ints(words: np.ndarray) -> list:
+    """(..., 8) Montgomery words -> standard-form ints."""
+    buf = np.ascontiguousarray(words.reshape(-1, 8)).astype("<u4").tobytes()
+    return [int.from_bytes(buf[32 * i : 32 * (i + 1)], "little") * _R_INV % FQ_MOD for i in range(len(buf) // 32)]
+
+
+def _window_fold_host(sums: np.ndarray, c: int) -> np.ndarray:
+    """(C, W, NB, 3, 8) Montgomery bucket-sum words (bucket b + 1 at b) ->
+    (C, 3, 8) int32 words, K4's second kernel on host ints: per window, sum_b
+    b * B_b as the last lane of a suffix then a prefix Hillis-Steele scan
+    (lane b adds lane b + s, then lane b - s, for s = 1, 2, 4, ...: ops/msm.py
+    `_weighted_windows`); per column, from the most significant window
+    down, c complete doublings and one complete add, from the identity
+    (0, 1, 0) (`_fold_windows`)."""
+    C, W, NB = sums.shape[:3]
+    v = _words_to_ints(sums)
+    out = []
+    for col in range(C):
+        acc = (0, 1, 0)
+        for w in range(W - 1, -1, -1):
+            i = 3 * NB * (col * W + w)
+            lanes = [tuple(v[i + 3 * b:i + 3 * b + 3]) for b in range(NB)]
+            s = 1
+            while s < NB:
+                lanes = [_proj_add(lanes[b], lanes[b + s]) if b + s < NB else lanes[b] for b in range(NB)]
+                s *= 2
+            s = 1
+            while s < NB:
+                lanes = [_proj_add(lanes[b], lanes[b - s]) if b >= s else lanes[b] for b in range(NB)]
+                s *= 2
+            for _ in range(c):
+                acc = _proj_dbl(acc)
+            acc = _proj_add(acc, lanes[-1])
+        out.extend(acc)
+    buf = b"".join((x * _R % FQ_MOD).to_bytes(32, "little") for x in out)
+    return np.frombuffer(buf, dtype="<i4").reshape(C, 3, 8).copy()
 
 
 def _decode_mont_table(tbl: np.ndarray) -> list:
@@ -287,53 +398,48 @@ def _host_fold_mont(tbl: np.ndarray, c: int):
     W, B = tbl.shape[-4], tbl.shape[-3]
     vals = _decode_mont_table(tbl)
 
-    def proj_add(a, b):
-        X1, Y1, Z1 = a
-        X2, Y2, Z2 = b
-        t0 = X1 * X2 % P
-        t1 = Y1 * Y2 % P
-        t2 = Z1 * Z2 % P
-        t3 = ((X1 + Y1) * (X2 + Y2) - t0 - t1) % P
-        t4 = ((Y1 + Z1) * (Y2 + Z2) - t1 - t2) % P
-        y3 = ((X1 + Z1) * (X2 + Z2) - t0 - t2) % P
-        x3 = 3 * t0 % P
-        t2b = 9 * t2 % P
-        z3 = (t1 + t2b) % P
-        t1b = (t1 - t2b) % P
-        y3b = 9 * y3 % P
-        X3 = (t3 * t1b - t4 * y3b) % P
-        Y3 = (t1b * z3 + y3b * x3) % P
-        Z3 = (t4 * z3 + t3 * x3) % P
-        return X3, Y3, Z3
-
     IDENT = (0, 1, 0)
     total = IDENT
     for w in range(W - 1, -1, -1):
         if total != IDENT:
             for _ in range(c):
-                total = proj_add(total, total)
+                total = _proj_add(total, total)
         run = IDENT
         acc = IDENT
         for b in range(B - 1, 0, -1):
             i = (w * B + b) * 3
             pt = (vals[i], vals[i + 1], vals[i + 2])
             if pt[2] != 0:
-                run = proj_add(run, pt) if run != IDENT else pt
+                run = _proj_add(run, pt) if run != IDENT else pt
             if run != IDENT:
-                acc = proj_add(acc, run) if acc != IDENT else run
+                acc = _proj_add(acc, run) if acc != IDENT else run
         if acc != IDENT:
-            total = proj_add(total, acc) if total != IDENT else acc
+            total = _proj_add(total, acc) if total != IDENT else acc
     if total == IDENT or total[2] == 0:
         return None
     zi = pow(total[2], -1, P)
     return (total[0] * zi % P, total[1] * zi % P)
 
 
+def _affine_columns(words: np.ndarray) -> list:
+    """(C, 3, 8) Montgomery projective words on the host -> C affine int
+    points, None for the identity (Z = 0): one inversion a column."""
+    vals = _words_to_ints(words)
+    out = []
+    for x, y, z in zip(vals[0::3], vals[1::3], vals[2::3]):
+        if z == 0:
+            out.append(None)
+            continue
+        zi = pow(z, -1, FQ_MOD)
+        out.append((x * zi % FQ_MOD, y * zi % FQ_MOD))
+    return out
+
+
 def msm_v2_host_batch(points_affine_mont, scalar_limbs_list):
     """C MSMs over shared points (n, 2, 16) Montgomery affine; each scalar
-    column (n_i <= n, 16) in standard form. One K3 launch for all columns,
-    K4, one small readback, then the host fold. Returns C affine points (or
-    None)."""
+    column (n_i <= n, 16) in standard form. One K3 call for all columns, one
+    K4 call down to a projective point per column, a (C, 3, 8) readback and
+    one inversion a column. Returns C affine points (or None)."""
     W, B = _wb(MSM_C)
     points, scalars = _pad_points_scalars(points_affine_mont, scalar_limbs_list)
     pts = _msm_pack_points(points)
@@ -344,9 +450,8 @@ def msm_v2_host_batch(points_affine_mont, scalar_limbs_list):
     signs = torch.empty_like(digs)
     for i, sl in enumerate(scalars):
         digs[i * W:(i + 1) * W], signs[i * W:(i + 1) * W] = _msm_prep_digits(sl, MSM_C)
-    tbl = _lane_reduce_v2(_accum_v2(pts, digs, signs, B))
-    tbl_h = limbs_from_torch(tbl).reshape(len(scalars), W, B, 3, N_LIMBS)
-    return [_host_fold_mont(t, MSM_C) for t in tbl_h]
+    red = _msm_reduce(_accum_v2(pts, digs, signs, B))
+    return _affine_columns(red.cpu().numpy())
 
 
 def msm_v2_host(points_affine_mont, scalar_limbs):

@@ -46,7 +46,7 @@ from ..proof_system.plonk.verifier import (
 from ..proof_system.transcript import PoseidonTranscript
 from ..zkevm.subcircuits import PoseidonSubCircuit
 from .compression import _canonical_k
-from .verifier_circuit import ACC_CELLS, LOOKUP_BITS, fit_record, recording_pass, replay_record
+from .verifier_circuit import ACC_CELLS, LOOKUP_BITS, fit_record, recording_pass, register_copies, replay_record
 
 log = logging.getLogger(__name__)
 
@@ -100,7 +100,7 @@ class AggregationCircuit(Circuit):
         self.inner_multiopen = inner_multiopen
         self._min_k: int | None = None
         self._record = None  # min_k()'s pass, which assign() takes its tables from
-        self._assign_cache: dict[int, dict] = {}
+        self._assign_cache: dict[int, tuple] = {}
 
     # -- layout ------------------------------------------------------------
 
@@ -224,7 +224,14 @@ class AggregationCircuit(Circuit):
     def assign(self, cs: ConstraintSystem, n: int, instance):
         cached = self._assign_cache.get(n)
         if cached is not None:
-            return cached
+            out, copies = cached
+            if not getattr(cs, "_agg_copies_done", False):
+                # a constraint system that has not seen this circuit's copies
+                # (a second keygen of the same circuit, a mock run): the
+                # record went to the first assignment, its copies stay here
+                register_copies(cs, copies)
+                cs._agg_copies_done = True
+            return out
         copies_start = len(cs.copies)
         had_copies = getattr(cs, "_agg_copies_done", False)
         replayed = replay_record(cs, self._record, n, "aggregation-gadget")
@@ -245,12 +252,13 @@ class AggregationCircuit(Circuit):
         base = ACC_CELLS + 1 + len(ctx_cells)
         for i, c in enumerate(exp_cells):
             cs.copy(self.instance, base + i, c.col, c.row)
+        copies = cs.copies[copies_start:]
         if had_copies:
             del cs.copies[copies_start:]
         else:
             cs._agg_copies_done = True
         out = {"fixed": fixed, "advice": adv}
-        self._assign_cache[n] = out
+        self._assign_cache[n] = (out, copies)
         return out
 
     # -- host twin -----------------------------------------------------------

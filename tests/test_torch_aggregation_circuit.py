@@ -16,6 +16,7 @@ shape against a JAX counting run."""
 import pytest
 import torch
 
+import tests.torch_native_cases  # noqa: F401  (both packages' native libraries, built once under a lock)
 from scroll_prover_tpu.gadgets.blob_eval import BlobEvalGadget as JBlobEvalGadget
 from scroll_prover_tpu.gadgets.builder import Builder as JBuilder
 from scroll_prover_tpu.proof_system.plonk.cs import ConstraintSystem as JConstraintSystem

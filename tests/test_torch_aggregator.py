@@ -7,6 +7,7 @@ exactly (integers and bytes)."""
 import pytest
 import torch
 
+import tests.torch_native_cases  # noqa: F401  (both packages' native libraries, built once under a lock)
 from scroll_prover_tpu import aggregator as jagg
 from scroll_prover_tpu.aggregator import blob as jblob
 from scroll_prover_tpu.aggregator import circuits as jcircuits

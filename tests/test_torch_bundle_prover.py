@@ -32,6 +32,7 @@ import os
 import pytest
 import torch
 
+import tests.torch_native_cases  # noqa: F401  (both packages' native libraries, built once under a lock)
 from scroll_prover_tpu.aggregator.batch_header import BatchHeader as JBatchHeader
 from scroll_prover_tpu.integration import prove as jintegration
 from scroll_prover_tpu.proof_system import kzg as jkzg

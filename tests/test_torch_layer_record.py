@@ -4,8 +4,12 @@
 instead of running the program a second time. The assignment and the
 copies so obtained equal those of a second run of the program, here for the
 AggregationCircuit with the blob (whose program holds a verifier gadget, so
-the VerifierCircuit's path is the same code), at k = 21."""
+the VerifierCircuit's path is the same code), at k = 21; and a second
+assignment of the same circuit object registers the same copies on a fresh
+constraint system (tests/test_torch_verifier_circuit.py holds the same for
+the VerifierCircuit)."""
 import numpy as np
+import pytest
 import torch
 
 from scroll_prover_tpu_torch.proof_system.plonk.cs import ConstraintSystem
@@ -23,21 +27,42 @@ def _assigned(circ, n):
     return tables, list(cs.copies), [(c.kind, c.index) for c in cs.perm_columns]
 
 
-def test_replayed_assignment_equals_a_second_run(inners):  # noqa: F811
+@pytest.fixture(scope="module")
+def replayed(inners):  # noqa: F811
+    """An AggregationCircuit (one inner, the blob) after min_k()'s pass and
+    its first assignment at n = 2^min_k: (a maker of fresh circuits, the
+    circuit, n, the assignment)."""
     (vk, proof, inst), _other = inners[0]
 
     def make():
         return AggregationCircuit([(vk, proof, inst)], context=blob_context(), inners_have_acc=False,
                                   expose=[(0, 0)], blob_bytes=BLOB, blob_width=WIDTH)
 
-    replayed = make()
-    n = 1 << replayed.min_k()
-    assert replayed._record is not None and replayed._record[0].shape[1] == n
-    got = _assigned(replayed, n)
-    assert replayed._record is None  # taken once, then dropped
+    circ = make()
+    n = 1 << circ.min_k()
+    assert circ._record is not None and circ._record[0].shape[1] == n
+    got = _assigned(circ, n)
+    assert circ._record is None  # taken once, then dropped
+    return make, circ, n, got
+
+
+def test_replayed_assignment_equals_a_second_run(replayed):
+    make, _circ, n, got = replayed
     want = _assigned(make(), n)  # no min_k: the program runs again
     for kind in ("fixed", "advice"):
         assert got[0][kind].shape == want[0][kind].shape == (want[0][kind].shape[0], n)
         assert np.array_equal(got[0][kind], want[0][kind]), kind
     assert got[1] == want[1] and got[2] == want[2]
     assert len(got[1]) > 1000
+
+
+def test_second_assign_registers_the_copies(replayed):
+    """The same circuit assigned on a fresh constraint system (a second
+    keygen of the same object, a mock run): the tables come from the cache,
+    and the copies the first assignment registered are registered again,
+    in order, with the same permutation columns (before, none were, and
+    keygen built an identity permutation and another vk)."""
+    _make, circ, n, got = replayed
+    again = _assigned(circ, n)
+    assert again[0] is got[0]
+    assert again[1] == got[1] and again[2] == got[2]

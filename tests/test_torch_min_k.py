@@ -13,6 +13,7 @@ import copy
 
 import pytest
 
+import tests.torch_native_cases  # noqa: F401  (both packages' native libraries, built once under a lock)
 from scroll_prover_tpu.l2types import BlockTrace as JBlockTrace
 from scroll_prover_tpu.proof_system.plonk.cs import ConstraintSystem as JCS
 from scroll_prover_tpu.proof_system.plonk.cs import empty_assignment as jempty

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_native_cases  # noqa: F401  (both packages' native libraries, built once under a lock)
 import scroll_prover_tpu.orchestration as J
 import scroll_prover_tpu.orchestration.prove_utils as jpu
 import scroll_prover_tpu_torch.orchestration as T

@@ -12,6 +12,7 @@ import time
 import pytest
 import torch
 
+import tests.torch_native_cases  # noqa: F401  (both packages' native libraries, built once under a lock)
 from scroll_prover_tpu.l2types import BlockTrace as JBlockTrace
 from scroll_prover_tpu.proof_system.plonk import Circuit as JCircuit
 from scroll_prover_tpu.proof_system.plonk.cs import ConstraintSystem as JCS

@@ -25,6 +25,7 @@ from scroll_prover_tpu.prover.verifier_circuit import VerifierCircuit as JVerifi
 from scroll_prover_tpu_torch.proof_system import kzg as tkzg
 from scroll_prover_tpu_torch.proof_system.plonk import keygen as tkeygen_mod
 from scroll_prover_tpu_torch.proof_system.plonk import prover as tprover_mod
+from scroll_prover_tpu_torch.proof_system.plonk.cs import ConstraintSystem
 from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen as tkeygen
 from scroll_prover_tpu_torch.proof_system.plonk.prover import prove as tprove
 from scroll_prover_tpu_torch.proof_system.plonk.verifier import acc_from_limbs, check_accumulator
@@ -106,13 +107,15 @@ def _counting(circ, keygen_mod, prover_mod) -> dict:
     del circ._run
     dom = types.SimpleNamespace(n=1 << k, extended_n=1 << (k + seen["j"]))
     seen["n_h"] = prover_mod._n_h(seen.pop("cs"), dom)
-    return {"k": k, "rows": circ._rows, **seen}
+    return {"k": k, "rows": circ._rows, "circ": circ, **seen}
 
 
 @pytest.fixture(scope="module")
 def torch_counts(inners):
-    return {mo: _counting(VerifierCircuit(tvk, proof, INSTANCE[0], inner_multiopen=mo), tkeygen_mod, tprover_mod)
-            for mo, (_jvk, tvk, proof) in inners.items()}
+    counts = {mo: _counting(VerifierCircuit(tvk, proof, INSTANCE[0], inner_multiopen=mo), tkeygen_mod, tprover_mod)
+              for mo, (_jvk, tvk, proof) in inners.items()}
+    del counts["gwc"]["circ"]  # the copies case takes one circuit (and its 2^21-row record)
+    return counts
 
 
 @pytest.fixture(scope="module")
@@ -149,6 +152,23 @@ def test_layer_circuit_shape_matches_jax(torch_counts, jax_count):
     # derived ones (extended domain, quotient pieces, permutation chunks)
     # are equal: both floor the budget at 5
     assert (jax_count["degree"], t["degree"]) == (3, 5)
+
+
+def test_second_assign_registers_the_copies(torch_counts):
+    """The layer circuit assigned on two fresh constraint systems (a
+    second keygen of the same object, a mock run): the second takes its
+    tables from the cache and registers the copies kept beside them, so
+    both hold the same copies."""
+    t = torch_counts["shplonk"]
+    circ, n = t["circ"], 1 << t["k"]
+    copies = []
+    for _ in range(2):
+        cs = ConstraintSystem()
+        circ.configure(cs)
+        circ.assign(cs, n, None)
+        copies.append(cs.copies)
+    assert copies[0] == copies[1]  # in order (a digest of millions of copies took ~25 s)
+    assert len(copies[0]) > 1000
 
 
 def _outcome(circ, srs):

@@ -11,6 +11,7 @@ import random
 import pytest
 import torch
 
+import tests.torch_native_cases  # noqa: F401  (both packages' native libraries, built once under a lock)
 from scroll_prover_tpu.curves import secp256k1 as jsecp
 from scroll_prover_tpu.l2types import BlockTrace as JBlockTrace
 from scroll_prover_tpu.prover.chunk_info import ChunkInfo as JChunkInfo

@@ -13,6 +13,7 @@ import random
 
 import pytest
 
+import tests.torch_native_cases  # noqa: F401  (both packages' native libraries, built once under a lock)
 from scroll_prover_tpu.aggregator import batch_data as jbd
 from scroll_prover_tpu.aggregator.zstd_decoder import decode_frame as jdecode_frame
 from scroll_prover_tpu.native import zstd_codec as jz

@@ -52,6 +52,25 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      windows x 1024 point tiles) and the v1 batch's time breakdown, and K3
      against its plain version at the shape the v2 MSM gave it (4 columns x
      43 windows x 2^20 points);
+ 4b. SRS.downsize and the mesh, after phase 4, on phase 3's SRS and prove:
+     SRS.generate_fast(21) (the SRS phase 6's layer 1 takes from the cache)
+     downsized to 20 by the group iNTT (ops/group_ntt.py: K1/K1as), its
+     Lagrange and monomial views equal to phase 3's generate_fast(20) bit
+     for bit, g2 and s_g2 shared, no host decode, with its seconds, its
+     K1/K1as/K5 launches and the peak device memory; then a process group
+     of world size 1 over NCCL (a file store in a temporary directory; the
+     phase fails where NCCL is missing) and its one-axis mesh:
+     msm_tile_sharded over phase 4's 4 columns equal to
+     msm_v2_host_batch's points, ShardedDomain(EvaluationDomain(20),
+     mesh).ntt_flat of a random column equal to TiledDomain(20).ntt, and
+     phase 3's BenchCircuit proved again with set_commit_mesh(mesh): sha256
+     equal to PROOF_SHA256 and verify True. The unrouted references and
+     the warm-ups run first, outside the count; the launch counts of K1,
+     K1as and K2-K5 are taken over the path alone (generate_fast, the
+     downsize, the routed MSM, the sharded NTT, the routed prove; each must
+     be > 0, the routed MSM one K3 a column, the sharded NTT K2 and no K3,
+     the prove one K3 a routed commit); then K2 at every pass it gave that
+     phase 3 did not hold, against its plain version;
   5. the chunk's inner proof at k = 18: a synthetic block trace (8
      transactions x 20,000 struct logs) through BlockTrace.from_json and
      chunk_trace_to_witness_block, ScrollSuperCircuit at the package's
@@ -135,7 +154,11 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      False with one blob byte flipped and with one byte of layer 4's proof
      flipped; the exposed data-hash cells equal to the chunk's data hash;
      both proofs' sha256 equal to BATCH_LAYER3_PROOF_SHA256 and
-     BATCH_LAYER4_PROOF_SHA256 for the blob's envelope byte; the launch counts over this phase alone
+     BATCH_LAYER4_PROOF_SHA256 for the blob's envelope byte; per prove
+     phase and quotient coset the caching allocator's retries,
+     out-of-memory events, reserved and allocated bytes, the garbage
+     collector's pauses and the host seconds inside each K2, K3 and K4
+     wrapper on layer 3; the launch counts over this phase alone
      (K1-K5 each > 0); then K2 at every pass that no earlier phase held,
      K3 on a slice of layer 3's densest commit group (2^23 points), K4 on
      that group's whole slot table and K5 on a slice of layer 3's SRS
@@ -200,6 +223,8 @@ KERNELS = {
 }
 MAIN_PATH = ("K1", "K1as", "K2", "K3", "K4", "K5")  # phase 3
 ALT_PATH = ("K6", "K7", "K8")  # phase 4
+MESH_PATH = ("K1", "K1as", "K2", "K3", "K4", "K5")  # phase 4b
+DOWNSIZE_FROM, DOWNSIZE_TO = 21, 20  # phase 4b: generate_fast(21).downsize(20) against generate_fast(20)
 # sha256 of the k=20 BenchCircuit proof (seed b"chip-smoke"), taken on the
 # card from the tree before the K1/K3 redesign: the redesigned kernels must
 # leave every byte of the proof as it was
@@ -906,8 +931,8 @@ def fast_domain_times(dev, gen) -> dict:
 
 def main_path(dev):
     """Phase 3: generate_fast(20), keygen, prove, verify of BenchCircuit.
-    Returns the phase seconds, a closure that proves again, the proof and
-    the SRS."""
+    Returns the phase seconds, a closure that proves again, the proof, the
+    SRS and a closure that verifies a proof."""
     from scroll_prover_tpu_torch.integration.bench_circuit import BenchCircuit
     from scroll_prover_tpu_torch.proof_system.kzg import SRS
     from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen
@@ -942,7 +967,8 @@ def main_path(dev):
     log(f"main path proof sha256: {digest} (pinned {PROOF_SHA256})")
     if digest != PROOF_SHA256:
         fail("the k=20 proof's bytes differ from the pinned proof")
-    return secs, lambda: prove(srs, pk, circ, instance, seed=b"chip-smoke"), proof, srs
+    return (secs, lambda: prove(srs, pk, circ, instance, seed=b"chip-smoke"), proof, srs,
+            lambda p: verify(srs, vk, instance, p))
 
 
 def wall_ms(fn):
@@ -1069,6 +1095,149 @@ def k3_full_check(base, cols) -> int:
     if err != 0:
         fail("K3 disagrees with its plain version at phase 4's shape")
     return err
+
+
+def mesh_phase(dev, gen, srs, cols, prove_again, verify_proof, held_k2):
+    """Phase 4b (see the module docstring): SRS.downsize at full width, then
+    the mesh over NCCL at world size 1. The references (the unrouted MSM
+    and NTT) and the warm-ups run first, outside the count; then the launch
+    counts of MESH_PATH are taken over the path alone (generate_fast, the
+    downsize, the routed MSM, the sharded NTT and the routed prove; each
+    must be > 0, and K3 must equal the routed MSM calls plus the prove's
+    routed commits); then K2 against its plain version at every pass the
+    phase gave it that no earlier phase held.
+    Returns ({key: launches}, {key: {mode: launches}}, the K2 passes held)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from scroll_prover_tpu_torch.fields.limbs import FR_LIMB
+    from scroll_prover_tpu_torch.ops import msm_tile as mt
+    from scroll_prover_tpu_torch.ops.ntt import EvaluationDomain
+    from scroll_prover_tpu_torch.ops.ntt_tile import TiledDomain
+    from scroll_prover_tpu_torch.parallel import init_process_group, make_mesh
+    from scroll_prover_tpu_torch.parallel.msm_sharded import msm_tile_sharded
+    from scroll_prover_tpu_torch.parallel.ntt_sharded import ShardedDomain
+    from scroll_prover_tpu_torch.proof_system import kzg
+
+    secs = {}
+    passes = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"phase 4b {name}: {secs[name]:.2f} s")
+        return res
+
+    def routed_prove(mesh):
+        """phase 3's prove with every commit of at least _threshold() points
+        over the mesh; returns (proof, routed commits)."""
+        commit_sharded = kzg._commit_sharded
+        commits = [0]
+
+        def tallied(*a):
+            commits[0] += 1
+            return commit_sharded(*a)
+
+        kzg._commit_sharded = tallied
+        kzg.set_commit_mesh(mesh)
+        try:
+            return prove_again(), commits[0]
+        finally:
+            kzg.set_commit_mesh(None)
+            kzg._commit_sharded = commit_sharded
+
+    def path(mesh, base, x, sdom):
+        torch.cuda.reset_peak_memory_stats()
+        big, gen_counts = launches_of(("K5",), lambda: step(
+            f"generate_fast({DOWNSIZE_FROM})", lambda: kzg.SRS.generate_fast(DOWNSIZE_FROM, device=dev)))
+        small, counts = launches_of(("K1", "K1as", "K5"), lambda: step(
+            f"downsize({DOWNSIZE_TO})", lambda: big.downsize(DOWNSIZE_TO)))
+        counts["K5 (generate_fast)"] = gen_counts["K5"]
+        log(f"phase 4b downsize({DOWNSIZE_TO}) of generate_fast({DOWNSIZE_FROM}): launches {json.dumps(counts)}, "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"(predicted before the first run: 10-14 s, ~117,000 K1 and ~137,000 K1as; PERF.md section 6)")
+        got, msm_counts = launches_of(("K3", "K2"), lambda: step(
+            "msm_tile_sharded x4", lambda: [msm_tile_sharded(mesh, base[:c.shape[0]], c) for c in cols]))
+        flat, ntt_counts = launches_of(("K2", "K3"), lambda: step(
+            f"ShardedDomain({srs.k}).ntt_flat", lambda: sdom.ntt_flat(x)))
+        (proof, commits), prove_counts = launches_of(("K3",), lambda: step(
+            "prove through the mesh", lambda: routed_prove(mesh)))
+        log(f"phase 4b: the routed MSM launched {json.dumps(msm_counts)}, the sharded NTT "
+            f"{json.dumps(ntt_counts)}, the prove through the mesh K3 {prove_counts['K3']} for {commits} "
+            f"routed commits")
+        if msm_counts != {"K3": len(cols), "K2": 0}:
+            fail(f"the routed MSM of {len(cols)} columns launched {msm_counts}, not one K3 a column")
+        if not ntt_counts["K2"] or ntt_counts["K3"]:
+            fail(f"the sharded NTT launched {ntt_counts}: no K2, or an MSM")
+        if not commits or prove_counts["K3"] != commits:
+            fail(f"the prove through the mesh launched K3 {prove_counts['K3']} times for {commits} routed commits")
+        return big, small, got, flat, proof, len(cols) + commits
+
+    def run():
+        # the references and the warm-ups, outside the count
+        ref = srs if DOWNSIZE_TO == srs.k else kzg.SRS.generate_fast(DOWNSIZE_TO, device=dev)
+        base = srs.dev_powers()
+        want = step("msm_v2_host_batch x4", lambda: mt.msm_v2_host_batch(base, cols))
+        x = rand_field(FR_LIMB, srs.n, gen, dev)
+        tdom = TiledDomain(srs.k, dev)
+        want_flat = step(f"TiledDomain({srs.k}).ntt", lambda: tdom.ntt(x))
+        del tdom
+        store = tempfile.mkdtemp(prefix="spt_mesh_")
+        try:
+            init_process_group(os.path.join(store, "store"), 0, 1, dev)
+        except RuntimeError as e:
+            fail(f"phase 4b: {e}")
+        try:
+            mesh = make_mesh(1)
+            log(f"phase 4b mesh: {mesh} over {dist.get_backend()}")
+            msm_tile_sharded(mesh, base, cols[0])  # NCCL sets up its communicator at the first collective
+            sdom = ShardedDomain(EvaluationDomain(srs.k), mesh)
+            sdom.ntt_flat(x)  # its tables, built once
+
+            (big, small, got, flat, proof, msm_calls), launches, by_mode = counted(
+                MESH_PATH, lambda: path(mesh, base, x, sdom))
+            if launches["K3"] != msm_calls:
+                fail(f"K3 launched {launches['K3']} times over the path, not its {msm_calls} routed MSM calls")
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
+
+        n = 1 << DOWNSIZE_TO
+        if not torch.equal(small.dev_lagrange(), ref.dev_lagrange()):
+            fail(f"downsize({DOWNSIZE_TO})'s Lagrange basis differs from generate_fast({DOWNSIZE_TO})'s")
+        prefix = small.dev_powers()
+        if not (torch.equal(prefix, big.dev_powers()[:n]) and torch.equal(prefix, ref.dev_powers())):
+            fail(f"downsize({DOWNSIZE_TO})'s monomial basis is not the prefix of generate_fast({DOWNSIZE_FROM})'s")
+        if small.g2 is not big.g2 or small.s_g2 is not big.s_g2 or small._g1_powers is not None:
+            fail("downsize did not share g2 and s_g2, or decoded the host lists")
+        log(f"phase 4b: downsize({DOWNSIZE_TO}) == generate_fast({DOWNSIZE_TO}) bit for bit (Lagrange and "
+            f"monomial views), g2 and s_g2 shared, no host decode")
+        if got != want:
+            fail("msm_tile_sharded over the mesh != msm_v2_host_batch on phase 4's 4 columns")
+        if not torch.equal(flat, want_flat):
+            fail(f"ShardedDomain(EvaluationDomain({srs.k}), mesh).ntt_flat != TiledDomain({srs.k}).ntt")
+        digest = hashlib.sha256(proof).hexdigest()
+        if digest != PROOF_SHA256 or not verify_proof(proof):
+            fail(f"the proof through the mesh (sha256 {digest}) is not phase 3's pinned proof or does not verify")
+        log(f"phase 4b: msm_tile_sharded == msm_v2_host_batch on 4 columns of 2^{srs.k}; "
+            f"ShardedDomain({srs.k}).ntt_flat == TiledDomain({srs.k}).ntt; the proof through the mesh "
+            f"verifies, sha256 {digest} (pinned)")
+        return launches, by_mode
+
+    t0 = time.perf_counter()
+    with hooked(("K2",), lambda _key, *a: note_k2(passes, *a)):
+        launches, by_mode = run()
+    secs["phase"] = time.perf_counter() - t0
+    log(f"phase 4b: {secs['phase']:.1f} s; seconds {json.dumps(secs)}; path launches {json.dumps(launches)}; "
+        f"K1 by mode {json.dumps(by_mode)}")
+    new = {key: v for key, v in passes.items() if key not in held_k2}
+    k2_pass_checks(new, dev, gen, "phase 4b")
+    return launches, by_mode, frozenset(passes)
 
 
 @contextlib.contextmanager
@@ -2210,13 +2379,16 @@ def ladder(srs, dev, gen, rows, info, held_k2=frozenset()):
 class _BatchMarks(_Marks):
     """_Marks for phase 7: at each mark also the peak device memory since
     the mark before (the peak is then reset), the launches of BATCH_PATH so
-    far, and in `layer` the layer whose keygen and prove are running (3 or
-    4, from its SRS to its proof; None between)."""
+    far, the caching allocator's retries, out-of-memory events, reserved
+    and allocated bytes and the script's clock, and in `layer` the layer
+    whose keygen and prove are running (3 or 4, from its SRS to its proof;
+    None between)."""
 
     def __init__(self):
         super().__init__()
         self.peaks = []
         self.launches = []
+        self.mem = []  # the caching allocator's state at each mark
         self.layer = None
 
     def emit(self, record):
@@ -2224,6 +2396,11 @@ class _BatchMarks(_Marks):
         msg = record.getMessage()
         self.peaks.append(torch.cuda.max_memory_allocated())
         torch.cuda.reset_peak_memory_stats()
+        st = torch.cuda.memory_stats()
+        self.mem.append({"retries": st.get("num_alloc_retries", 0), "ooms": st.get("num_ooms", 0),
+                         "reserved_gib": st.get("reserved_bytes.all.current", 0) / 2**30,
+                         "allocated_gib": st.get("allocated_bytes.all.current", 0) / 2**30,
+                         "clock_s": time.perf_counter() - _T_START})
         self.launches.append({key: wrapper(key).launches for key in BATCH_PATH})
         for layer in (3, 4):
             if msg == f"batch: layer{layer} srs ready":
@@ -2290,6 +2467,8 @@ def batch(chunk, params_map, dev, gen, rows, held_k2):
     passes = {}
     k5_slices = []
     timed = {key: [] for key in ("K2", "K3", "K4")}
+    launch_host = {key: [] for key in timed}  # (host seconds inside the wrapper, script clock) per launch
+    gcs, gc_at = [], [0.0]
     pending = {}
     k3 = {"rank": (-1, -1), "args": None}
     marks = _BatchMarks()
@@ -2329,7 +2508,7 @@ def batch(chunk, params_map, dev, gen, rows, held_k2):
                 k3["k4_in"] = a[0].clone()
             start = torch.cuda.Event(enable_timing=True)
             start.record()
-            pending[key] = (start, w)
+            pending[key] = (start, w, time.perf_counter())
 
     def done(key):
         t0 = time.perf_counter()
@@ -2338,10 +2517,17 @@ def batch(chunk, params_map, dev, gen, rows, held_k2):
 
     def done_hooked(key):
         if key in pending:
-            start, w = pending.pop(key)
+            start, w, host_t0 = pending.pop(key)
+            launch_host[key].append((time.perf_counter() - host_t0, host_t0 - _T_START))
             end = torch.cuda.Event(enable_timing=True)
             end.record()
             timed[key].append((start, end, w))
+
+    def on_gc(phase, info):  # each collection's host seconds, to tell a collector pause from a device wait
+        if phase == "start":
+            gc_at[0] = time.perf_counter()
+        else:
+            gcs.append((time.perf_counter() - gc_at[0], info["generation"], gc_at[0] - _T_START, marks.layer))
 
     def step(name, fn):
         t0 = time.perf_counter()
@@ -2368,7 +2554,11 @@ def batch(chunk, params_map, dev, gen, rows, held_k2):
 
     before = {key: wrapper(key).launches for key in KERNELS}
     t0 = time.perf_counter()
-    proof, launches, modes = counted(BATCH_PATH, run)
+    gc.callbacks.append(on_gc)
+    try:
+        proof, launches, modes = counted(BATCH_PATH, run)
+    finally:
+        gc.callbacks.remove(on_gc)
     out["seconds"]["phase"] = time.perf_counter() - t0
     for key in KERNELS:
         rows[key]["batch_launches"] = launches[key] if key in launches else wrapper(key).launches - before[key]
@@ -2382,12 +2572,25 @@ def batch(chunk, params_map, dev, gen, rows, held_k2):
     for layer in (3, 4):  # the prover's phases and cosets, from its marks
         start = next(t for msg, t in marks.marks if msg == f"batch: layer{layer} keygen done")
         end = next(t for msg, t in marks.marks if msg == f"batch: layer{layer} proved")
-        prev = start
-        for msg, t in marks.marks:
+        prev, mem_prev = start, None
+        for (msg, t), mem in zip(marks.marks, marks.mem):
             if start < t <= end and (msg.startswith("prove[") or msg.startswith("quotient coset") and msg.endswith(" done")):
                 label = msg[len("prove["):msg.index("]")] if msg.startswith("prove[") else msg.removesuffix(" done")
-                log(f"batch layer {layer} prove: {label}: {t - prev:.2f} s")
+                alloc = "" if mem_prev is None else (
+                    f"; allocator: retries +{mem['retries'] - mem_prev['retries']}, out-of-memory "
+                    f"+{mem['ooms'] - mem_prev['ooms']}, reserved {mem['reserved_gib']:.2f} GiB, allocated "
+                    f"{mem['allocated_gib']:.2f} GiB, at {mem['clock_s']:.1f} s")
+                log(f"batch layer {layer} prove: {label}: {t - prev:.2f} s{alloc}")
                 prev = t
+            if start <= t <= end:
+                mem_prev = mem
+    slow = sorted(g for g in gcs if g[0] > 0.5)
+    log(f"batch: {len(gcs)} garbage collections, {sum(g[0] for g in gcs):.2f} s in all; over 0.5 s [seconds, "
+        f"generation, at, layer]: {json.dumps(slow[-8:])}")
+    for key, calls in launch_host.items():
+        worst = sorted(calls)[-3:]
+        log(f"batch: {key} launches on layer 3's keygen and prove, host seconds inside the wrapper: "
+            f"{sum(c[0] for c in calls):.2f} s in all; the longest [seconds, at]: {json.dumps(worst)}")
 
     l3, l4 = proof.inner.layers
     first = 0
@@ -2555,7 +2758,7 @@ def main() -> None:
             with hooked(("K2",), lambda _key, *a: note_k2(k2_main, *a)):
                 return main_path(dev)
 
-        (secs, prove_again, proof, srs), main_launches, by_mode = counted(MAIN_PATH, main_run)
+        (secs, prove_again, proof, srs, verify_proof), main_launches, by_mode = counted(MAIN_PATH, main_run)
         launches.update(main_launches)
         for key, modes in by_mode.items():
             for mode, v in modes.items():
@@ -2583,8 +2786,17 @@ def main() -> None:
                 key, _, mode = label.partition(" ")
                 target = rows[key]["modes"][mode] if mode else rows[key]
                 target.update({"prove_launches": st["launches"], "prove_device_ms": st["device_ms"]})
-        del prove_again, cols
         clock("phase 4")
+
+        mesh_launches, mesh_modes, mesh_k2 = mesh_phase(dev, gen, srs, cols, prove_again, verify_proof, held_k2)
+        for key, v in mesh_launches.items():
+            rows[key]["mesh_launches"] = v
+        for key, modes in mesh_modes.items():
+            for mode, v in modes.items():
+                rows[key]["modes"][mode]["mesh_launches"] = v
+        held_k2 |= mesh_k2
+        del prove_again, verify_proof, cols
+        clock("phase 4b")
 
         # the phase runs at the package's defaults: no cap or degree knob
         for knob in [v for v in os.environ if v.startswith("SPT_")]:

@@ -52,6 +52,10 @@ def from_affine(xy) -> PointP:
     return PointP(x, y, fo.one_mont(F, x.shape[:-1], device=x.device))
 
 
+def neg(p: PointP) -> PointP:
+    return PointP(p.x, fo.neg_mod(F, p.y), p.z)
+
+
 def add(p: PointP, q: PointP) -> PointP:
     """Complete projective addition (RCB15 alg. 7, a=0, b3=9)."""
     mul = partial(fo.mont_mul, F)
@@ -149,6 +153,21 @@ def double(p: PointP) -> PointP:
     x3 = mul(t0, t1)
     x3 = add_(x3, x3)
     return PointP(x3, y3, z3)
+
+
+def add_reduce(p: PointP) -> PointP:
+    """Sum a batch of points (n, 16) -> one point (16,): padded to a power
+    of two with the identity, then log2(n) halving rounds of complete adds
+    (lane i adds lane i + m/2), as the JAX package orders them."""
+    n = p.x.shape[0]
+    m = 1 << (n - 1).bit_length() if n > 1 else 1
+    if m != n:
+        pad = identity((m - n,), device=p.x.device)
+        p = PointP(*(torch.cat([a, b]) for a, b in zip(p, pad)))
+    while m > 1:
+        m //= 2
+        p = add(PointP(*(a[:m] for a in p)), PointP(*(a[m:] for a in p)))
+    return PointP(*(a[0] for a in p))
 
 
 # --- host conversion helpers -------------------------------------------------

@@ -8,9 +8,12 @@ Every elementwise field op is kernel K1 on the card (csrc/mont_mul.cu), one
 launch per call, for Fr and for Fq with the modulus passed in: a CUDA tensor
 goes through `mont_mul_k1` (the product modes: a*b, a*b + c, a*b - c) or
 `add_sub_k1` (a + b, a - b, -a); a CPU tensor goes through the plain
-versions, a lazy-carry CIOS in int64 and 16-step limb carry chains. On the
-card a plain-torch CIOS is ~250 small launches per product and a carry chain
-~35, and the prover calls them thousands of times.
+versions: a Montgomery product over lazy int64 limb sums, carries moved in
+whole rounds. On the card, where the plain versions are the kernels'
+oracle, the same product walks its carry chains in order (a round's test
+for a remaining carry would wait for the device): a few hundred small
+launches per product and ~35 per add, where the prover calls them
+thousands of times.
 
 Every output is canonical (< p), so the kernel, the plain version and the JAX
 package agree bit for bit whatever algorithm each uses inside.
@@ -45,10 +48,31 @@ def _const(f: LimbField, name: str, device) -> torch.Tensor:
 
 
 def _carry(s: torch.Tensor):
-    """Normalize lazy limbs (each < 2^31) to 16 bits; returns (limbs, carry)."""
+    """Normalize lazy limbs (each of either sign, |limb| < 2^62) to 16 bits;
+    returns (limbs, carry out of the top), the carry negative for a borrow.
+    On the CPU every round moves each limb's carry up one position at once,
+    until no limb carries (two rounds for a sum of two canonical values,
+    more only where a carry runs through 0xFFFF limbs); on the card, where
+    that test would wait for the device each round, one pass walks the
+    limbs in order."""
+    if s.is_cuda:
+        return _carry_in_order(s)
+    x = s.reshape(-1, s.shape[-1])
+    top = torch.zeros_like(x[:, 0])
+    while True:
+        c = x >> 16  # floor: -1 for a borrow
+        if not bool(c.any()):
+            return x.reshape(s.shape), top.reshape(s.shape[:-1])
+        x = x & LIMB_MASK
+        x[:, 1:] += c[:, :-1]
+        top += c[:, -1]
+
+
+def _carry_in_order(s: torch.Tensor):
+    """`_carry` as one pass over the limbs, low to high."""
     out = torch.empty_like(s)
     c = torch.zeros_like(s[..., 0])
-    for j in range(N_LIMBS):
+    for j in range(s.shape[-1]):
         v = s[..., j] + c
         out[..., j] = v & LIMB_MASK
         c = v >> 16
@@ -57,14 +81,8 @@ def _carry(s: torch.Tensor):
 
 def _sub_raw(a, b):
     """Limbwise a - b with borrow: (diff_limbs, borrow in {0, 1})."""
-    d = a - b
-    out = torch.empty_like(d)
-    brw = torch.zeros_like(d[..., 0])
-    for j in range(N_LIMBS):
-        v = d[..., j] - brw
-        out[..., j] = v & LIMB_MASK
-        brw = (v >> 16) & 1  # arithmetic shift: -1 iff v < 0
-    return out, brw
+    d, c = _carry(a - b)
+    return d, -c
 
 
 def _cond_sub_p(f: LimbField, t, extra):
@@ -105,34 +123,76 @@ def select(mask, a, b):
 # --- Montgomery multiplication ------------------------------------------------
 
 
-def _mont_mul_plain(f: LimbField, a, b):
-    """Plain PyTorch K1: lazy-carry CIOS over 16-bit limbs in int64.
+def _diag_sums(x):
+    """(N, 16, 16) products x[:, i, j] -> (N, 31): column c sums the
+    products with i + j = c (each row padded by 16 zeros and read back at
+    a stride of 31, which shears row i right by i)."""
+    N, L, _ = x.shape
+    y = torch.nn.functional.pad(x, (0, L)).reshape(N, 2 * L * L)
+    return y[:, : L * (2 * L - 1)].reshape(N, L, 2 * L - 1).sum(1)
 
-    phase 1: the 32 lazy limbs of a*b (each a sum of <= 16 products < 2^32);
-    phase 2: word-by-word reduction, normalizing only position i to get
-    m_i = t_i * n0inv mod 2^16 and pushing its carry up one position;
-    phase 3: one carry pass and a conditional subtract (result < 2p)."""
+
+_TOEPLITZ: dict = {}
+
+
+def _toeplitz(f: LimbField, name: str, device) -> torch.Tensor:
+    """(16, cols) int64 t[i, c] = v[c - i] (0 outside v) for v = p (31
+    columns: the full product's positions) or p' = -p^-1 mod R (16: the
+    product mod R), so that (x[:, :, None] * t).sum(1) is x * v in lazy
+    limbs."""
+    key = (f.modulus, name, str(device))
+    t = _TOEPLITZ.get(key)
+    if t is None:
+        v = f.modulus if name == "p" else -pow(f.modulus, -1, 1 << 256) % (1 << 256)
+        cols = 2 * N_LIMBS - 1 if name == "p" else N_LIMBS
+        limbs = [int(x) for x in int_to_limbs(v)]
+        rows = [[limbs[c - i] if 0 <= c - i < N_LIMBS else 0 for c in range(cols)] for i in range(N_LIMBS)]
+        t = _TOEPLITZ[key] = torch.tensor(rows, dtype=torch.int64, device=device)
+    return t
+
+
+# rows per step of the plain product, whose (rows, 16, 32) int64 products
+# are 256 MiB on the CPU and 2 GiB on the card, where fewer, larger steps
+# keep its ~170 launches a step from setting its time
+_MUL_ROWS = 1 << 16
+_MUL_ROWS_CUDA = 1 << 19
+
+
+def _redc_rows(f: LimbField, a, b):
+    """(N, 16) int64 limbs -> (N, 16) int32 a*b*R^-1 mod p, canonical,
+    without an interleaved loop: T = a*b as lazy limb sums, m = T * p' mod R
+    (p' = -p^-1 mod R) from T's low half, U = T + m*p; U / R = a*b*R^-1 is
+    U's high half, below 2p, less p where it is not below p."""
+    L = N_LIMBS
+    t = _diag_sums(a[:, :, None] * b[:, None, :])  # T = a*b, limbs < 2^36
+    m, _ = _carry((t[:, :L, None] * _toeplitz(f, "pinv", a.device)).sum(1))  # T * p' mod R
+    u = t + (m[:, :, None] * _toeplitz(f, "p", a.device)).sum(1)  # U = T + m*p = 0 mod R, limbs < 2^37
+    # U's low half is 0 mod R: three carry rounds leave its limbs at most
+    # 2^16, where their value is 0 or R, so the carry into the high half is
+    # what the rounds moved out plus one where a low limb is not 0 (its
+    # carries would otherwise ripple through all 16 limbs, a round each)
+    lo, hi = u[:, :L], torch.nn.functional.pad(u[:, L:], (0, 1))
+    for _ in range(3):
+        c = lo >> 16
+        lo = lo & LIMB_MASK
+        lo[:, 1:] += c[:, :-1]
+        hi[:, 0] += c[:, -1]
+    hi[:, 0] += (lo != 0).any(1).to(torch.int64)
+    res, c = _carry(hi)  # U / R < 2p
+    return _cond_sub_p(f, res.to(LIMB_DTYPE), c.to(LIMB_DTYPE))
+
+
+def _mont_mul_plain(f: LimbField, a, b):
+    """Plain PyTorch K1: the Montgomery product over 16-bit limbs in int64,
+    `_redc_rows` over _MUL_ROWS rows at a time (_MUL_ROWS_CUDA on the card)."""
     a, b = torch.broadcast_tensors(a, b)
     shape = a.shape
     a = a.reshape(-1, N_LIMBS).to(torch.int64)
     b = b.reshape(-1, N_LIMBS).to(torch.int64)
-    L = N_LIMBS
-    t = torch.zeros(a.shape[0], 2 * L + 1, dtype=torch.int64, device=a.device)
-    for i in range(L):
-        t[:, i : i + L] += a[:, i : i + 1] * b
-    p = _const(f, "p", a.device).to(torch.int64)
-    n0 = int(f.n0inv)
-    for i in range(L):
-        m = (t[:, i] * n0) & LIMB_MASK
-        t[:, i : i + L] += m[:, None] * p
-        t[:, i + 1] += t[:, i] >> 16
-    res = torch.empty(a.shape[0], L, dtype=torch.int64, device=a.device)
-    c = torch.zeros_like(t[:, 0])
-    for j in range(L):
-        v = t[:, L + j] + c
-        res[:, j] = v & LIMB_MASK
-        c = v >> 16
-    out = _cond_sub_p(f, res.to(LIMB_DTYPE), c.to(LIMB_DTYPE))
+    out = torch.empty(a.shape, dtype=LIMB_DTYPE, device=a.device)
+    rows = _MUL_ROWS_CUDA if a.is_cuda else _MUL_ROWS
+    for s in range(0, a.shape[0], rows):
+        out[s : s + rows] = _redc_rows(f, a[s : s + rows], b[s : s + rows])
     return out.reshape(shape)
 
 

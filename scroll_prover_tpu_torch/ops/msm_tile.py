@@ -435,11 +435,11 @@ def _affine_columns(words: np.ndarray) -> list:
     return out
 
 
-def msm_v2_host_batch(points_affine_mont, scalar_limbs_list):
+def msm_v2_proj_batch(points_affine_mont, scalar_limbs_list):
     """C MSMs over shared points (n, 2, 16) Montgomery affine; each scalar
-    column (n_i <= n, 16) in standard form. One K3 call for all columns, one
-    K4 call down to a projective point per column, a (C, 3, 8) readback and
-    one inversion a column. Returns C affine points (or None)."""
+    column (n_i <= n, 16) in standard form. One K3 call for all columns and
+    one K4 call down to (C, 3, 8) projective Montgomery words on the
+    points' device, one point per column."""
     W, B = _wb(MSM_C)
     points, scalars = _pad_points_scalars(points_affine_mont, scalar_limbs_list)
     pts = _msm_pack_points(points)
@@ -450,8 +450,13 @@ def msm_v2_host_batch(points_affine_mont, scalar_limbs_list):
     signs = torch.empty_like(digs)
     for i, sl in enumerate(scalars):
         digs[i * W:(i + 1) * W], signs[i * W:(i + 1) * W] = _msm_prep_digits(sl, MSM_C)
-    red = _msm_reduce(_accum_v2(pts, digs, signs, B))
-    return _affine_columns(red.cpu().numpy())
+    return _msm_reduce(_accum_v2(pts, digs, signs, B))
+
+
+def msm_v2_host_batch(points_affine_mont, scalar_limbs_list):
+    """msm_v2_proj_batch, then a (C, 3, 8) readback and one inversion a
+    column. Returns C affine points (or None)."""
+    return _affine_columns(msm_v2_proj_batch(points_affine_mont, scalar_limbs_list).cpu().numpy())
 
 
 def msm_v2_host(points_affine_mont, scalar_limbs):

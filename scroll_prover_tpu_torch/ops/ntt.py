@@ -13,8 +13,21 @@ and out.
 """
 from __future__ import annotations
 
+import numpy as np
+
 from ..fields.bn254 import FR_GENERATOR, FR_ROOT_OF_UNITY, FR_TWO_ADICITY
 from ..fields.limbs import FR_LIMB, N_LIMBS, LimbField
+from .ntt_tile import _bitrev, _pow_table_mont
+
+
+def _bitrev_indices(n: int) -> np.ndarray:
+    """(n,) uint32: the bit reversal of each index of a power-of-two n."""
+    return _bitrev(n.bit_length() - 1).astype(np.uint32)
+
+
+def _powers_mont(f: LimbField, base: int, n: int) -> np.ndarray:
+    """[1, base, ..., base^(n-1)] as (n, 16) uint32 Montgomery limbs (host)."""
+    return _pow_table_mont(f, base, n)
 
 
 class EvaluationDomain:

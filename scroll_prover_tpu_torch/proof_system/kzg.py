@@ -2,7 +2,8 @@
 
 An SRS holds monomial and Lagrange G1 bases plus G2 / s*G2. Commits of at
 least DEVICE_MSM_THRESHOLD points run the bucket MSM (ops/msm_tile.py: K3/K4
-on the card); smaller ones the host Pippenger, as in the JAX package.
+on the card), over a process group's ranks once `set_commit_mesh` gives a
+mesh; smaller ones the host Pippenger, as in the JAX package.
 Verification is the host pairing (curves/pairing.py).
 
 SRS generation from a seed tau is INSECURE (tau is derivable): tests and
@@ -12,6 +13,7 @@ the JAX package's device arrays across with `srs_from_numpy`.
 from __future__ import annotations
 
 import hashlib
+import os
 import struct
 
 import numpy as np
@@ -30,7 +32,9 @@ from ..ops import poly as poly_ops
 
 _SRS_CACHE: dict = {}
 
-# below this size a host Pippenger commit is cheaper than the device MSM
+# below this size a host Pippenger commit is cheaper than the device MSM;
+# SPT_DEVICE_MSM_THRESHOLD, read at each commit (`_threshold`), moves it,
+# as in the JAX package
 DEVICE_MSM_THRESHOLD = 65536
 # columns per batched device commit (one K3 launch) of up to COMMIT_POINTS
 # points each; longer columns go fewer at a time, so that a launch's digits,
@@ -167,6 +171,25 @@ class SRS:
             s_g2 = _dec_g2(fh.read(128))
         return cls(k, powers, lagrange, g2, s_g2, device)
 
+    def downsize(self, k: int) -> "SRS":
+        """The SRS of degree k <= self.k on the same device: g2 and s_g2
+        shared, the monomial basis a prefix of this one, the Lagrange basis
+        rebuilt from that prefix by the group iNTT (ops/group_ntt.py) into
+        the device view. Host lists stay lazy: an SRS made on the device is
+        not decoded, and a host one gives its prefix."""
+        assert k <= self.k
+        if k == self.k:
+            return self
+        from ..ops.group_ntt import group_intt_dev
+
+        n = 1 << k
+        small = SRS(k, None if self._g1_powers is None else self._g1_powers[:n], None, self.g2, self.s_g2,
+                    self.device)
+        if self._dev_powers is not None:
+            small._dev_powers = self._dev_powers[:n]
+        small._dev_lagrange = group_intt_dev(small.dev_powers(), k)
+        return small
+
     # -- device views ------------------------------------------------------
 
     def dev_powers(self):
@@ -281,13 +304,42 @@ def _batch_to_affine(jacs):
 # --- commit / open -------------------------------------------------------------
 
 
+# the mesh a commit of at least _threshold() points fans out over
+# (parallel/msm_sharded.py); None commits on this process's device alone.
+# Bit-identical either way: the point sum is exact at any world size
+_COMMIT_MESH = None
+
+
+def set_commit_mesh(mesh) -> None:
+    global _COMMIT_MESH
+    _COMMIT_MESH = mesh
+
+
+def _threshold() -> int:
+    return int(os.environ.get("SPT_DEVICE_MSM_THRESHOLD", str(DEVICE_MSM_THRESHOLD)))
+
+
+def _commit_sharded(srs: SRS, coeffs_mont, basis: str):
+    """One commit over _COMMIT_MESH: each rank's slice of the points through
+    the v2 MSM (K3/K4 on the card, their plain versions on the CPU, where
+    the JAX package takes `msm_sharded` because its kernels do not run
+    there), the partial points summed in rank order."""
+    from ..parallel.msm_sharded import msm_tile_sharded
+
+    n = coeffs_mont.shape[0]
+    base = srs.dev_powers() if basis == "monomial" else srs.dev_lagrange()
+    return msm_tile_sharded(_COMMIT_MESH, base[:n], fo.from_mont(FR_LIMB, coeffs_mont))
+
+
 def kzg_commit(srs: SRS, coeffs_mont, basis: str = "monomial"):
     """Commit to (n, 16) Montgomery coefficients (or Lagrange evaluations).
     Returns a host affine point (or None)."""
     n = coeffs_mont.shape[0]
     assert n <= srs.n
+    if _COMMIT_MESH is not None and n >= _threshold():
+        return _commit_sharded(srs, coeffs_mont, basis)
     scalars = fo.from_mont(FR_LIMB, coeffs_mont)
-    if n < DEVICE_MSM_THRESHOLD:
+    if n < _threshold():
         from ..curves.bn254_curve import host_msm_jac
 
         host_pts = srs.g1_powers if basis == "monomial" else srs.g1_lagrange
@@ -300,12 +352,13 @@ def kzg_commit(srs: SRS, coeffs_mont, basis: str = "monomial"):
 
 def kzg_commit_batch(srs: SRS, coeffs_list, basis: str = "monomial"):
     """Commit to several columns over the same basis: device-size columns go
-    commit_group(n) at a time through one batched MSM (one K3 launch each)."""
+    commit_group(n) at a time through one batched MSM (one K3 launch each);
+    with a commit mesh set, column by column over the mesh."""
     coeffs_list = list(coeffs_list)
     if not coeffs_list:
         return []
     n_max = max(c.shape[0] for c in coeffs_list)
-    if n_max < DEVICE_MSM_THRESHOLD:
+    if n_max < _threshold() or _COMMIT_MESH is not None:
         return [kzg_commit(srs, c, basis) for c in coeffs_list]
     from ..ops.msm_tile import msm_v2_host_batch
 

@@ -25,7 +25,6 @@ them.
 """
 from __future__ import annotations
 
-import gc
 import logging
 import time
 
@@ -46,7 +45,9 @@ from ..proof_system.plonk.verifier import (
 from ..proof_system.transcript import PoseidonTranscript
 from ..zkevm.subcircuits import PoseidonSubCircuit
 from .compression import _canonical_k
-from .verifier_circuit import ACC_CELLS, LOOKUP_BITS, fit_record, recording_pass, register_copies, replay_record
+from .verifier_circuit import (
+    ACC_CELLS, LOOKUP_BITS, collector_off, fit_record, recording_pass, register_copies, replay_record,
+)
 
 log = logging.getLogger(__name__)
 
@@ -120,18 +121,10 @@ class AggregationCircuit(Circuit):
     # -- the gadget program ------------------------------------------------
 
     def _run(self, cs, fixed, adv, n: int):
-        # the pass allocates millions of long-lived cells and almost no
-        # cyclic garbage: with the collector on, its full collections over
-        # them take about half of a pass; it stays off for the pass
         t0 = time.time()
         log.info("aggregation-gadget build start (n=%d)", n)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
+        with collector_off():  # millions of long-lived cells, almost no cyclic garbage
             out = self._program(cs, fixed, adv, n)
-        finally:
-            if collecting:
-                gc.enable()
         log.info("aggregation-gadget build done: %d rows, %.1fs", out[0].rows_used(), time.time() - t0)
         return out
 

@@ -821,6 +821,18 @@ def load_vk(vk_id: str, assets_dir: str = ""):
     return None
 
 
+def _downsized(srs: kzg.SRS, k: int) -> kzg.SRS:
+    """srs.downsize(k), once per (SRS object, k). No proving path calls it:
+    each degree's SRS is made by `_generate_srs`."""
+    cache_key = (id(srs), k)
+    if cache_key not in _DOWNSIZE_CACHE:
+        _DOWNSIZE_CACHE[cache_key] = srs.downsize(k)
+    return _DOWNSIZE_CACHE[cache_key]
+
+
+_DOWNSIZE_CACHE: dict = {}
+
+
 def apply_production_cap_profile(traces) -> dict:
     """Default every unset SPT_*_CAP to the WITNESS DEMAND of `traces`.
 

@@ -19,6 +19,7 @@ the whole chain.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import logging
 import time
@@ -112,12 +113,41 @@ def replay_record(cs, record, n: int, tag: str):
     return fixed, adv, out
 
 
+# objects in the permanent generation before any block below ran: CPython
+# 3.12 starts with a few hundred of its own tuples there
+_FROZEN_AT_IMPORT = gc.get_freeze_count()
+
+
+@contextlib.contextmanager
+def collector_off():
+    """The cyclic collector off for a block that allocates millions of
+    long-lived objects and almost no cyclic garbage (a gadget pass, a copy
+    registration): with it on, its collections over them took about half
+    of a pass. On the way out the block's objects go straight to the
+    oldest generation (gc.freeze, then gc.unfreeze, which also moves the
+    interpreter's own frozen tuples there): left young, the next
+    collections walked them all, 7-22 s each on the card's host (phase 7 of
+    chip_smoke.py). The price: cyclic garbage made in the block goes there
+    too, and only a full collection reclaims it. Where other code froze
+    objects since this module's import, they stay frozen and the block's
+    objects stay young."""
+    collecting = gc.isenabled()
+    promote = gc.get_freeze_count() <= _FROZEN_AT_IMPORT
+    gc.disable()
+    try:
+        yield
+    finally:
+        if promote:
+            gc.freeze()
+            gc.unfreeze()
+        if collecting:
+            gc.enable()
+
+
 def register_copies(cs, copies) -> None:
     """Register `copies` on `cs` in their order, at once when `cs` holds
     none yet."""
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
+    with collector_off():
         if cs.copies:
             for (a, ra), (b, rb) in copies:
                 cs.copy(a, ra, b, rb)
@@ -130,9 +160,6 @@ def register_copies(cs, copies) -> None:
                     perm.update(((a.kind, a.index), (b.kind, b.index)))
             cs._copy_set.update(((a.kind, a.index), ra, (b.kind, b.index), rb) for (a, ra), (b, rb) in copies)
             cs.copies.extend(copies)
-    finally:
-        if collecting:
-            gc.enable()
 
 
 class VerifierCircuit(Circuit):
@@ -197,16 +224,8 @@ class VerifierCircuit(Circuit):
             b, self.pos, ec, self.inner_vk, inst_cells, self.inner_proof,
             inner_acc_cells=acc_cells, multiopen=self.inner_multiopen,
         )
-        # the pass allocates millions of long-lived cells and almost no
-        # cyclic garbage: with the collector on, its full collections over
-        # them took ~45% of a pass; it stays off for the pass
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
+        with collector_off():
             lhs, rhs = vg.run()
-        finally:
-            if collecting:
-                gc.enable()
         _vlog.info(
             "verifier-gadget build done: %d rows, %.1fs",
             b.rows_used(), _time.time() - _t0,

@@ -63,6 +63,44 @@ def test_inv_mont_matches_jax(field):
     np.testing.assert_array_equal(got, want)
 
 
+def _carry_heavy(tf, n, seed):
+    """Canonical values whose limbs are mostly 0xFFFF, 0x0000 and their
+    neighbours, where carries and borrows run through many limbs."""
+    rng = np.random.default_rng(seed)
+    words = ["ffff", "0000", "fffe", "0001"]
+    vals = [0, 1, tf.modulus - 1, tf.modulus - 2, (1 << 255) % tf.modulus]
+    vals += [int("".join(rng.choice(words) for _ in range(16)), 16) % tf.modulus for _ in range(n)]
+    return tf.encode(vals, mont=False)
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_plain_products_agree_on_carry_heavy_limbs(field, monkeypatch):
+    """The plain product (`_redc_rows`, and `_mont_mul_plain` over steps of
+    a few rows), the plain add and sub, and the carry's in-order pass that
+    runs on the card against its rounds, against host integers on every
+    pair of carry-heavy values."""
+    monkeypatch.setattr(tfo, "_MUL_ROWS", 300)
+    _, tf = FIELDS[field]
+    p = tf.modulus
+    vals = _carry_heavy(tf, 40, 7)
+    a = np.repeat(vals, len(vals), axis=0)
+    b = np.tile(vals, (len(vals), 1))
+    ta, tb = limbs_to_torch(a, "cpu"), limbs_to_torch(b, "cpu")
+    ai, bi = tf.decode(a, mont=False), tf.decode(b, mont=False)
+    rinv = pow(1 << 256, -1, p)
+    want = tf.encode([x * y * rinv % p for x, y in zip(ai, bi)], mont=False)
+    np.testing.assert_array_equal(limbs_from_torch(tfo._redc_rows(tf, ta.long(), tb.long())), want)
+    np.testing.assert_array_equal(limbs_from_torch(tfo._mont_mul_plain(tf, ta, tb)), want)
+    for s in (ta.long() + tb.long(), ta.long() - tb.long(), ta.long()[:, :, None] * tb.long()[:, None, :]):
+        s = s.reshape(s.shape[0], -1)
+        for got, ref in zip(tfo._carry_in_order(s), tfo._carry(s)):
+            assert torch.equal(got, ref)
+    np.testing.assert_array_equal(limbs_from_torch(tfo._add_mod_plain(tf, ta, tb)),
+                                  tf.encode([(x + y) % p for x, y in zip(ai, bi)], mont=False))
+    np.testing.assert_array_equal(limbs_from_torch(tfo._sub_mod_plain(tf, ta, tb)),
+                                  tf.encode([(x - y) % p for x, y in zip(ai, bi)], mont=False))
+
+
 def test_broadcast_scalar_product():
     """A (16,) scalar broadcast over a column, as the prover's constants are."""
     a, b = _operands(FR_LIMB, 14)

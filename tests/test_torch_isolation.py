@@ -22,6 +22,8 @@ from scroll_prover_tpu_torch.proof_system.plonk import prover as tprover
 from scroll_prover_tpu_torch.integration import prove_and_verify_bundle
 from scroll_prover_tpu_torch.prover import BatchProver, BatchVerifier, BundleProvingTask
 from scroll_prover_tpu_torch.bin import chain_prover
+from scroll_prover_tpu_torch.ops.group_ntt import group_intt_points
+from scroll_prover_tpu_torch.parallel import init_process_group
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -68,7 +70,8 @@ def test_chip_smoke_refuses_without_cuda():
 @pytest.mark.parametrize(
     "entry",
     ["generate", "generate_fast", "load", "srs_from_numpy", "tiled_domain", "fast_domain", "poseidon_dev",
-     "prove", "coset_cache_cap", "batch_prover", "batch_verifier", "prove_and_verify_bundle", "chain_prover"],
+     "prove", "coset_cache_cap", "batch_prover", "batch_verifier", "prove_and_verify_bundle", "chain_prover",
+     "group_intt_points", "init_process_group"],
 )
 def test_entry_points_refuse_silent_cpu(entry, tmp_path, monkeypatch):
     """Called without device="cpu" on a machine with no card, an entry point
@@ -94,6 +97,8 @@ def test_entry_points_refuse_silent_cpu(entry, tmp_path, monkeypatch):
         "batch_verifier": lambda: BatchVerifier({}),
         "prove_and_verify_bundle": lambda: prove_and_verify_bundle({}, "", BundleProvingTask([])),
         "chain_prover": lambda: chain_prover.main([]),
+        "group_intt_points": lambda: group_intt_points([(1, 2)], 0),
+        "init_process_group": lambda: init_process_group(str(tmp_path / "store"), 0, 1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -132,8 +137,20 @@ def test_every_module_is_listed():
                 "evm.interpreter", "evm.verifier_contract", "evm.full_verifier", "evm.harness",
                 "proof_system.plonk.checkpoint", "orchestration", "orchestration.settings",
                 "orchestration.clients", "orchestration.builders", "orchestration.prove_utils",
-                "bin.chain_prover", "bin.trace_prover"):
+                "bin.chain_prover", "bin.trace_prover", "ops.group_ntt", "parallel", "parallel.mesh",
+                "parallel.msm_sharded", "parallel.ntt_sharded"):
         assert f"scroll_prover_tpu_torch.{mod}" in names, mod
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The port has a module of the same path for every module of the JAX
+    package."""
+    def modules(pkg):
+        top = os.path.join(ROOT, pkg)
+        return {os.path.relpath(os.path.join(d, f), top) for d, _, files in os.walk(top) for f in files
+                if f.endswith(".py")}
+
+    assert not modules("scroll_prover_tpu") - modules("scroll_prover_tpu_torch")
 
 
 _EVM_SIDE = """

@@ -2,8 +2,10 @@
 two circuits, each written against the JAX API and the torch API.
 
 Identical vk bytes, byte-identical proofs for a fixed seed under GWC and
-SHPLONK, each side's verifier accepting the other side's proof, and a
-tampered proof rejected."""
+SHPLONK, each side's verifier accepting the other side's proof, a tampered
+proof rejected, and the port's proof with every commit routed over a gloo
+mesh of 1, 2 and 4 ranks (tests/torch_dist_worker.py) equal to the JAX
+package's."""
 import pytest
 import torch
 
@@ -20,6 +22,7 @@ from scroll_prover_tpu_torch.proof_system.plonk.cs import empty_assignment
 from scroll_prover_tpu_torch.proof_system.plonk.keygen import VerifyingKey, keygen as tkeygen
 from scroll_prover_tpu_torch.proof_system.plonk.prover import prove as tprove
 from scroll_prover_tpu_torch.proof_system.plonk.verifier import verify as tverify
+from tests.torch_dist_worker import spawn
 
 torch.set_num_threads(2)
 
@@ -143,3 +146,15 @@ def test_tampered_and_wrong_instance_rejected(srs_pair, keys, proofs, name):
     bad[70] ^= 1
     assert not tverify(ts, tvk, INSTANCE, bytes(bad))
     assert not tverify(ts, tvk, [[8]], tp)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_routed_proof_bytes_identical(proofs, world, tmp_path):
+    """BenchCircuit proved by `world` gloo ranks with every commit routed over
+    their mesh (SPT_DEVICE_MSM_THRESHOLD lowered to 2^K, as
+    __graft_entry__.dryrun_multichip lowers it): each rank's bytes equal the
+    JAX package's unrouted proof."""
+    jp, _ = proofs["bench", "gwc"]
+    for rank in spawn(world, str(tmp_path), "routed_proof", K, 8, INSTANCE, SEED, "gwc"):
+        assert rank["host"] == 0 and rank["routed"] > 0, rank
+        assert rank["proof"] == jp

@@ -12,6 +12,7 @@ the layer circuit's columns, gates, lookups and copies, all equal. The
 raw `max_gate_degree` differs (the port counts lookups): the derived
 budget, which sets the domain, the quotient pieces and the permutation
 chunks, is equal. Exact equality throughout: these are integers."""
+import gc
 import hashlib
 import types
 
@@ -19,9 +20,11 @@ import pytest
 import torch
 
 from scroll_prover_tpu.proof_system.plonk import keygen as jkeygen_mod
+from scroll_prover_tpu.proof_system.plonk.cs import ConstraintSystem as JConstraintSystem
 from scroll_prover_tpu.proof_system.plonk import prover as jprover_mod
 from scroll_prover_tpu.proof_system.plonk.keygen import VerifyingKey as JVerifyingKey
 from scroll_prover_tpu.prover.verifier_circuit import VerifierCircuit as JVerifierCircuit
+from scroll_prover_tpu_torch.fields.limbs import objcol_to_packed
 from scroll_prover_tpu_torch.proof_system import kzg as tkzg
 from scroll_prover_tpu_torch.proof_system.plonk import keygen as tkeygen_mod
 from scroll_prover_tpu_torch.proof_system.plonk import prover as tprover_mod
@@ -30,7 +33,7 @@ from scroll_prover_tpu_torch.proof_system.plonk.keygen import keygen as tkeygen
 from scroll_prover_tpu_torch.proof_system.plonk.prover import prove as tprove
 from scroll_prover_tpu_torch.proof_system.plonk.verifier import acc_from_limbs, check_accumulator
 from scroll_prover_tpu_torch.proof_system.plonk.verifier import verify as tverify
-from scroll_prover_tpu_torch.prover.verifier_circuit import ACC_CELLS, VerifierCircuit
+from scroll_prover_tpu_torch.prover.verifier_circuit import ACC_CELLS, VerifierCircuit, collector_off
 from tests.test_torch_plonk import INSTANCE, K, TorchMul
 
 torch.set_num_threads(2)
@@ -103,7 +106,10 @@ def _counting(circ, keygen_mod, prover_mod) -> dict:
         return out
 
     circ._run = capture
-    k = circ.min_k()
+    # the collector off for either package's pass, as the port's own
+    # recording pass runs (the JAX package's own keeps it on)
+    with collector_off():
+        k = circ.min_k()
     del circ._run
     dom = types.SimpleNamespace(n=1 << k, extended_n=1 << (k + seen["j"]))
     seen["n_h"] = prover_mod._n_h(seen.pop("cs"), dom)
@@ -199,6 +205,70 @@ def test_tampered_inner_rejected(srs, inners, mo, tamper):
     got = _outcome(VerifierCircuit(tvk, proof, inst, inner_multiopen=mo), srs)
     assert got == "raised" or got[0] is False
     assert got == _outcome(JVerifierCircuit(jvk, proof, inst, inner_multiopen=mo), srs)
+
+
+@pytest.mark.parametrize("frozen_before", [False, True])
+def test_collector_off_leaves_no_young_objects(frozen_before):
+    """A block under collector_off: the collector is off inside and back on
+    after, and the block's objects leave it in the oldest generation, so
+    the next young collection does not walk them; where objects were
+    frozen (by other code) before, they stay frozen."""
+    assert gc.isenabled()
+    marker = [[]]
+    if frozen_before:
+        gc.freeze()
+    try:
+        with collector_off():
+            assert not gc.isenabled()
+            kept = [[i] for i in range(100_000)]
+        assert gc.isenabled()
+        if frozen_before:  # still in the permanent generation, which no get_objects() lists
+            assert gc.get_freeze_count() > 0
+            assert not any(o is marker for o in gc.get_objects())
+        else:
+            assert gc.get_count()[0] < 1000
+            young = {id(o) for o in gc.get_objects(generation=0)}
+            assert not any(id(o) in young for o in kept[::1000])
+    finally:
+        if frozen_before:
+            gc.unfreeze()
+
+
+def _tables_digest(tables) -> str:
+    """sha256 over every fixed, then every advice column's canonical values
+    as packed words."""
+    h = hashlib.sha256()
+    for kind in ("fixed", "advice"):
+        for col in tables[kind]:
+            h.update(objcol_to_packed(col).tobytes())
+    return h.hexdigest()
+
+
+def test_layer1_replayed_tables_match_jax(inners, monkeypatch):
+    """Layer 1 over the SHPLONK inner proof at 32 builder lanes (k = 16), in
+    both packages: the recording pass (min_k) replayed into the fixed and
+    advice tables (`assign`), with equal digests of both tables and of the
+    copies. No SRS, keygen or prove: test_layer1_proof_bytes_identical
+    (slow) compares the proofs."""
+    monkeypatch.setenv("SPT_BUILDER_LANES", "32")
+    jvk, tvk, proof = inners["shplonk"]
+    got = []
+    # the collector off for both packages' passes, as the port's own
+    # recording pass runs: over the passes' millions of long-lived cells it
+    # took over half the JAX side
+    with collector_off():
+        for circ_cls, cs_cls, vk in ((VerifierCircuit, ConstraintSystem, tvk),
+                                     (JVerifierCircuit, JConstraintSystem, jvk)):
+            circ = circ_cls(vk, proof, INSTANCE[0], inner_multiopen="shplonk")
+            k = circ.min_k()
+            cs = cs_cls()
+            circ.configure(cs)
+            tables = circ.assign(cs, 1 << k, None)
+            got.append((k, circ._rows, len(tables["fixed"]), len(tables["advice"]), _tables_digest(tables),
+                        _copies_digest(cs.copies)))
+            del circ, cs, tables
+    assert got[0] == got[1]
+    assert got[0][0] == 16
 
 
 @pytest.mark.slow

@@ -1,0 +1,8 @@
+"""witness_s: seconds a task spends in the benchmark's "witness" spans (host
+clock, each span ending in a synchronize), over the window's tasks, less
+the benchmark's own work inside them."""
+
+
+def read(r):
+    secs = r.tracer.seconds("witness")
+    return secs / r.tasks if r.tasks and secs else None

@@ -82,7 +82,9 @@ Phases, each fatal on failure (non-zero exit, no ok line):
      phases and of each coset, the coset cache's cap, the share of non-zero
      cells per sub-circuit's columns and of non-zero MSM digits, the launch
      counts of K1, K1as, K2, K3 and K4 over this phase alone (each must be
-     > 0), its peak device memory and peak host RSS; then, after the counts
+     > 0), its peak device memory and peak host RSS, and the table of the
+     port's spans over the phase (scroll_prover_tpu_torch/trace.py, on for
+     the phase: calls, seconds, self seconds, counts); then, after the counts
      are read, K3 against its plain version on the chunk's own densest
      commit group (its points, digits and signs, captured during the
      prove), K4 on that K3 output (8 columns), and K2 at every pass the chunk gave it
@@ -1311,7 +1313,8 @@ def tally_bounds(calls):
             for g, ms in groups.items()}
 
 
-NTT_RANGE = "TiledDomain.transform"  # torch.profiler range around each NTT (ops/ntt_tile.py)
+NTT_RANGE = "spt.ntt"  # the port's span around each NTT (ops/ntt_tile.py), a profiler range while tracing is on
+SPAN_PREFIX = "spt."  # every span of the port (scroll_prover_tpu_torch/trace.py) as a profiler range
 
 
 def range_split(prof, label: str):
@@ -1324,7 +1327,7 @@ def range_split(prof, label: str):
     evs = prof.profiler.kineto_results.events()
     on_card = [e for e in evs if e.device_type() != torch.autograd.DeviceType.CPU]
     spans = sorted((e.start_ns(), e.end_ns()) for e in on_card if e.name() == label)
-    work_evs = sorted((e for e in on_card if e.name() != label), key=lambda e: e.start_ns())
+    work_evs = sorted((e for e in on_card if not e.name().startswith(SPAN_PREFIX)), key=lambda e: e.start_ns())
     inside, si = {}, 0
     for e in work_evs:
         while si < len(spans) and spans[si][1] < e.start_ns():
@@ -1353,13 +1356,27 @@ def log_ntt_split(prof, on_dev, dev_us, tag: str) -> None:
             f"outside {e.count - n_in} launches {dev_us(e) / 1e3 - ms_in:.1f} ms")
 
 
+def log_spans(tag: str, spans) -> None:
+    """The port's spans (scroll_prover_tpu_torch/trace.py) as one table, by
+    self time: calls, outermost seconds, self seconds and the summed counts
+    (steps replayed, cache hits, copies, columns, elements, ...)."""
+    from scroll_prover_tpu_torch import trace
+
+    log(f"{tag} the port's spans (calls, outermost s, self s, counts), by self time:")
+    for name, row in sorted(trace.summary(spans).items(), key=lambda kv: -kv[1]["self_s"]):
+        counts = " ".join(f"{k} {v}" for k, v in row["attrs"].items())
+        log(f"  span {name:28s} x{row['calls']:<6d} {row['total_s']:9.3f} s {row['self_s']:9.3f} s self  {counts}")
+
+
 def profile_prove(run, proof, out_dir: str, tag: str = "prove"):
     """Two more proves, each checked against the first: one under
-    torch.profiler (device kernel time; busy share = summed device time over
-    the prove's wall time; per kernel, device time per launch beside the
-    bound per launch at the shapes this prove gave it), one under cProfile
-    (host time by function). Returns the per-launch table, keyed by kernel
-    and by "K1 <mode>" / "K1as <mode>"."""
+    torch.profiler with the port's spans on (device kernel time; busy share
+    = summed device time over the prove's wall time; per kernel, device time
+    per launch beside the bound per launch at the shapes this prove gave
+    it), one under cProfile (host time by function). Returns the per-launch
+    table, keyed by kernel and by "K1 <mode>" / "K1as <mode>"."""
+    from scroll_prover_tpu_torch import trace
+
     os.makedirs(out_dir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for key in KERNELS:
@@ -1367,9 +1384,14 @@ def profile_prove(run, proof, out_dir: str, tag: str = "prove"):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with bound_tally() as calls, torch.profiler.profile(activities=acts) as prof:
-        again = run()
-        torch.cuda.synchronize()
+        trace.enable(True)
+        try:
+            again = run()
+            torch.cuda.synchronize()
+        finally:
+            trace.enable(False)
     wall = time.perf_counter() - t0
+    log_spans(f"profile: {tag}", trace.drain())
     if again != proof:
         fail("profiled prove gave other bytes")
     totals = tally_bounds(calls)
@@ -1379,9 +1401,9 @@ def profile_prove(run, proof, out_dir: str, tag: str = "prove"):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     # device-side events only (kernels, copies): the host ops that launched
-    # them report the same device time again, and the NTT range's device
-    # span covers kernels listed on their own
-    on_dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA and e.key != NTT_RANGE]
+    # them report the same device time again, and the device span of each
+    # of the port's ranges covers kernels listed on their own
+    on_dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith(SPAN_PREFIX)]
     if not on_dev:
         fail("torch.profiler recorded no device events")
     busy = sum(dev_us(e) for e in on_dev) / 1e6
@@ -2809,7 +2831,15 @@ def main() -> None:
             with path_inputs() as seen:
                 return chunk_proof(dev), seen
 
-        ((secs, chunk_again, chunk, info), seen), chunk_launches, chunk_modes = counted(CHUNK_PATH, chunk_run)
+        from scroll_prover_tpu_torch import trace as port_trace
+
+        port_trace.drain()
+        port_trace.enable(True)  # the phase's frontend, keygen and prove as the port's spans
+        try:
+            ((secs, chunk_again, chunk, info), seen), chunk_launches, chunk_modes = counted(CHUNK_PATH, chunk_run)
+        finally:
+            port_trace.enable(False)
+        log_spans("chunk:", port_trace.drain())
         for key, v in chunk_launches.items():
             rows[key]["chunk_launches"] = v
         for key, modes in chunk_modes.items():

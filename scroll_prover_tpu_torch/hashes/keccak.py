@@ -10,6 +10,8 @@ transcript"), and address/code hashing in witness generation.
 """
 from __future__ import annotations
 
+from ..trace import spanned
+
 _ROUND_CONSTANTS = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
     0x000000000000808B, 0x0000000080000001, 0x8000000080008081, 0x8000000000008009,
@@ -111,6 +113,7 @@ def pad_blocks(data: bytes, rate: int = 136) -> list[bytes]:
 ROUND_CONSTANTS = _ROUND_CONSTANTS
 
 
+@spanned("keccak")
 def keccak256(data: bytes) -> bytes:
     rate = 136  # bytes (1088 bits)
     # pad10*1 with the 0x01 domain byte (Ethereum Keccak)

@@ -11,6 +11,8 @@ import json
 from dataclasses import dataclass, field
 from typing import Any
 
+from ..trace import spanned
+
 
 def _hex_int(v, default=0) -> int:
     if v is None:
@@ -182,6 +184,7 @@ class BlockTrace:
     extra: dict = field(default_factory=dict)
 
     @classmethod
+    @spanned("witness.parse")
     def from_json(cls, d: dict) -> "BlockTrace":
         known = {
             "chainID", "version", "coinbase", "header", "transactions",

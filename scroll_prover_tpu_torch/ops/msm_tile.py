@@ -48,6 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..fields.bn254 import FQ_MOD
 from ..fields.limbs import (
     FQ_LIMB, LIMB_DTYPE, N_LIMBS, limbs_from_torch, limbs_to_words, words_to_limbs,
@@ -439,24 +440,29 @@ def msm_v2_proj_batch(points_affine_mont, scalar_limbs_list):
     """C MSMs over shared points (n, 2, 16) Montgomery affine; each scalar
     column (n_i <= n, 16) in standard form. One K3 call for all columns and
     one K4 call down to (C, 3, 8) projective Montgomery words on the
-    points' device, one point per column."""
+    points' device, one point per column. The span "msm.digits" covers
+    the padding, packing and digit preparation before K3."""
     W, B = _wb(MSM_C)
-    points, scalars = _pad_points_scalars(points_affine_mont, scalar_limbs_list)
-    pts = _msm_pack_points(points)
-    # each column's digits and signs go straight into the (C*W, n) pair: a
-    # list of the columns' pairs concatenated after would hold both copies
-    # at once (43 GiB for 8 columns at 2^23 points)
-    digs = torch.empty((len(scalars) * W, points.shape[0]), dtype=LIMB_DTYPE, device=points.device)
-    signs = torch.empty_like(digs)
-    for i, sl in enumerate(scalars):
-        digs[i * W:(i + 1) * W], signs[i * W:(i + 1) * W] = _msm_prep_digits(sl, MSM_C)
+    with trace.span("msm.digits"):
+        points, scalars = _pad_points_scalars(points_affine_mont, scalar_limbs_list)
+        pts = _msm_pack_points(points)
+        # each column's digits and signs go straight into the (C*W, n) pair: a
+        # list of the columns' pairs concatenated after would hold both copies
+        # at once (43 GiB for 8 columns at 2^23 points)
+        digs = torch.empty((len(scalars) * W, points.shape[0]), dtype=LIMB_DTYPE, device=points.device)
+        signs = torch.empty_like(digs)
+        for i, sl in enumerate(scalars):
+            digs[i * W:(i + 1) * W], signs[i * W:(i + 1) * W] = _msm_prep_digits(sl, MSM_C)
     return _msm_reduce(_accum_v2(pts, digs, signs, B))
 
 
 def msm_v2_host_batch(points_affine_mont, scalar_limbs_list):
     """msm_v2_proj_batch, then a (C, 3, 8) readback and one inversion a
-    column. Returns C affine points (or None)."""
-    return _affine_columns(msm_v2_proj_batch(points_affine_mont, scalar_limbs_list).cpu().numpy())
+    column (the span "msm.host"). Returns C affine points (or None)."""
+    with trace.span("msm", columns=len(scalar_limbs_list)):
+        proj = msm_v2_proj_batch(points_affine_mont, scalar_limbs_list)
+        with trace.span("msm.host"):
+            return _affine_columns(proj.cpu().numpy())
 
 
 def msm_v2_host(points_affine_mont, scalar_limbs):

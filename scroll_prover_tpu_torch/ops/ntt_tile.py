@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..fields.limbs import FR_LIMB, LIMB_DTYPE, N_LIMBS, LimbField, ints_to_limbs, limbs_to_torch
 from . import cuda_lib
@@ -247,7 +248,7 @@ class TiledDomain:
         x (and applies `scale` before a forward transform), the middle ones
         run in place, the last writes natural order (times n^-1 and `scale`
         after an inverse one)."""
-        with torch.profiler.record_function("TiledDomain.transform"):
+        with trace.span("ntt", columns=x.shape[0]):
             levels = self._tables[inverse]
             y, kk = x.contiguous(), self.k
             for li, (twpack, twmid) in enumerate(levels):

@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ... import trace
 from ...fields.bn254 import FR_MOD
 from ...fields.limbs import objcol_to_packed
 from .expression import Advice, Expression, Fixed, Instance
@@ -166,7 +167,8 @@ def packed_column(col) -> np.ndarray:
     memory map), anything else is converted."""
     if isinstance(col, np.ndarray) and col.dtype == np.uint32 and col.ndim == 2:
         return col
-    return objcol_to_packed(col)
+    with trace.span("codec", elements=len(col)):
+        return objcol_to_packed(col)
 
 
 def assign_cached(circuit: Circuit, cs: ConstraintSystem, n: int, instance):
@@ -184,37 +186,40 @@ def assign_cached(circuit: Circuit, cs: ConstraintSystem, n: int, instance):
     under the JAX package's module path (keygen's vk pickler), and either
     package reads the other's cache. Cached tables come back as packed
     words (memory-mapped), which keygen and prove take as they take
-    object columns (packed_column)."""
+    object columns (packed_column). The span "circuit.assign" covers it,
+    with cache_hit 1 where the cache gave the tables back."""
     import json
     import os
 
-    path = os.environ.get("SPT_ASSIGN_CACHE")
-    if not path:
-        return circuit.assign(cs, n, instance)
-    from .keygen import _JaxNamesPickler, _PortUnpickler
+    with trace.span("circuit.assign", cache_hit=0) as sp:
+        path = os.environ.get("SPT_ASSIGN_CACHE")
+        if not path:
+            return circuit.assign(cs, n, instance)
+        from .keygen import _JaxNamesPickler, _PortUnpickler
 
-    meta_p = os.path.join(path, "meta.json")
-    if os.path.exists(meta_p):
-        with open(meta_p) as fh:
-            meta = json.load(fh)
-        if meta["n"] == n and meta["num_advice"] == cs.num_advice and meta["num_fixed"] == cs.num_fixed:
-            adv = np.load(os.path.join(path, "advice.npy"), mmap_mode="r")
-            fx = np.load(os.path.join(path, "fixed.npy"), mmap_mode="r")
-            with open(os.path.join(path, "copies.pkl"), "rb") as fh:
-                saved = _PortUnpickler(fh).load()
-            for (a, ra), (b, rb) in saved["copies"]:
-                cs.copy(a, ra, b, rb)  # idempotent
-            if saved.get("row_usages") is not None:
-                circuit.row_usages_ = saved["row_usages"]
-            return {"advice": adv, "fixed": fx}
-    tables = circuit.assign(cs, n, instance)
-    os.makedirs(path, exist_ok=True)
-    adv = np.stack([packed_column(tables["advice"][i]) for i in range(cs.num_advice)])
-    fx = np.stack([packed_column(tables["fixed"][i]) for i in range(cs.num_fixed)])
-    np.save(os.path.join(path, "advice.npy"), adv)
-    np.save(os.path.join(path, "fixed.npy"), fx)
-    with open(os.path.join(path, "copies.pkl"), "wb") as fh:
-        _JaxNamesPickler(fh, 4).dump({"copies": cs.copies, "row_usages": getattr(circuit, "row_usages_", None)})
-    with open(meta_p, "w") as fh:
-        json.dump({"n": n, "num_advice": cs.num_advice, "num_fixed": cs.num_fixed}, fh)
-    return {"advice": adv, "fixed": fx}
+        meta_p = os.path.join(path, "meta.json")
+        if os.path.exists(meta_p):
+            with open(meta_p) as fh:
+                meta = json.load(fh)
+            if meta["n"] == n and meta["num_advice"] == cs.num_advice and meta["num_fixed"] == cs.num_fixed:
+                adv = np.load(os.path.join(path, "advice.npy"), mmap_mode="r")
+                fx = np.load(os.path.join(path, "fixed.npy"), mmap_mode="r")
+                with open(os.path.join(path, "copies.pkl"), "rb") as fh:
+                    saved = _PortUnpickler(fh).load()
+                for (a, ra), (b, rb) in saved["copies"]:
+                    cs.copy(a, ra, b, rb)  # idempotent
+                if saved.get("row_usages") is not None:
+                    circuit.row_usages_ = saved["row_usages"]
+                sp.set(cache_hit=1)
+                return {"advice": adv, "fixed": fx}
+        tables = circuit.assign(cs, n, instance)
+        os.makedirs(path, exist_ok=True)
+        adv = np.stack([packed_column(tables["advice"][i]) for i in range(cs.num_advice)])
+        fx = np.stack([packed_column(tables["fixed"][i]) for i in range(cs.num_fixed)])
+        np.save(os.path.join(path, "advice.npy"), adv)
+        np.save(os.path.join(path, "fixed.npy"), fx)
+        with open(os.path.join(path, "copies.pkl"), "wb") as fh:
+            _JaxNamesPickler(fh, 4).dump({"copies": cs.copies, "row_usages": getattr(circuit, "row_usages_", None)})
+        with open(meta_p, "w") as fh:
+            json.dump({"n": n, "num_advice": cs.num_advice, "num_fixed": cs.num_fixed}, fh)
+        return {"advice": adv, "fixed": fx}

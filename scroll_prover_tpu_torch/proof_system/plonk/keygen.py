@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ... import trace
 from ...fields.bn254 import FR_GENERATOR, FR_MOD, FR_TWO_ADICITY
 from ...fields.limbs import FR_LIMB, ints_to_limbs, limbs_to_torch, objcol_to_packed, packed_to_torch
 from ...hashes.keccak import keccak256
@@ -41,9 +42,11 @@ _JAX_PKG = "scroll_prover_tpu"
 def encode_column(col, device) -> torch.Tensor:
     """Assignment column (ints, object array, or packed (n, 8) words) ->
     (n, 16) Montgomery limbs on `device`: host packed standard-form words,
-    split into limbs on the device, then one to_mont product there."""
-    packed = col if isinstance(col, np.ndarray) and col.dtype == np.uint32 else objcol_to_packed(col)
-    return fo.to_mont(FR_LIMB, packed_to_torch(packed, device))
+    split into limbs on the device, then one to_mont product there (the
+    span "codec")."""
+    with trace.span("codec", elements=len(col)):
+        packed = col if isinstance(col, np.ndarray) and col.dtype == np.uint32 else objcol_to_packed(col)
+        return fo.to_mont(FR_LIMB, packed_to_torch(packed, device))
 
 
 def _pickle_shape(shape: dict) -> bytes:
@@ -188,6 +191,7 @@ class _SigmaValues:
         return self.m
 
 
+@trace.spanned("keygen")
 def keygen(srs: SRS, k: int, circuit: Circuit, instance=None, ckpt=None):
     """Returns (pk, vk), on the SRS's device. Fixed columns come from an
     assignment with a zero instance (fixed content must not depend on the
@@ -199,7 +203,11 @@ def keygen(srs: SRS, k: int, circuit: Circuit, instance=None, ckpt=None):
     time, and their coefficient forms are left to the first prove, which
     builds them at each use; `ckpt` (a checkpoint.ProveCheckpoint) then
     memoizes the two commit lists ("kg_fixed", "kg_sigma") across restarts.
-    The vk is the same either way."""
+    The vk is the same either way.
+
+    Spans: "keygen", with "circuit.assign", "keygen.permutation" (the copy
+    cycles), "keygen.fixed" and "keygen.sigma" (coefficient forms and
+    commitments) inside."""
     device = srs.device
     cs = ConstraintSystem()
     circuit.configure(cs)
@@ -212,7 +220,9 @@ def keygen(srs: SRS, k: int, circuit: Circuit, instance=None, ckpt=None):
     fixed_vals = [packed_column(tables["fixed"][i]) for i in range(cs.num_fixed)]
     tables = None
 
-    sigma_vals = _SigmaValues(_build_next(cs, n), len(cs.perm_columns), n, dom.omega, device)
+    with trace.span("keygen.permutation", copies=len(cs.copies)):
+        nxt = _build_next(cs, n)
+    sigma_vals = _SigmaValues(nxt, len(cs.perm_columns), n, dom.omega, device)
     if os.environ.get("SPT_LOWMEM") == "1":
         from .prover import _commit_values
 
@@ -229,14 +239,21 @@ def keygen(srs: SRS, k: int, circuit: Circuit, instance=None, ckpt=None):
         def sigma_commits():
             return commit_groups(len(sigma_vals), sigma_vals.col_mont)
 
-        fixed_coms = fixed_commits() if ckpt is None else ckpt.points("kg_fixed", fixed_commits)
-        sigma_coms = sigma_commits() if ckpt is None else ckpt.points("kg_sigma", sigma_commits)
+        with trace.span("keygen.fixed"):
+            fixed_coms = fixed_commits() if ckpt is None else ckpt.points("kg_fixed", fixed_commits)
+        with trace.span("keygen.sigma"):
+            sigma_coms = sigma_commits() if ckpt is None else ckpt.points("kg_sigma", sigma_commits)
         fixed_polys = sigma_polys = None
     else:
-        fixed_polys = [dom.intt(encode_column(col, device)) for col in fixed_vals]
-        sigma_polys = [dom.intt(sigma_vals.col_mont(j)) for j in range(len(sigma_vals))]
-        fixed_coms = kzg_commit_batch(srs, fixed_polys)
-        sigma_coms = kzg_commit_batch(srs, sigma_polys)
+        # two spans each, in the order of the work: coefficient forms, then commitments
+        with trace.span("keygen.fixed"):
+            fixed_polys = [dom.intt(encode_column(col, device)) for col in fixed_vals]
+        with trace.span("keygen.sigma"):
+            sigma_polys = [dom.intt(sigma_vals.col_mont(j)) for j in range(len(sigma_vals))]
+        with trace.span("keygen.fixed"):
+            fixed_coms = kzg_commit_batch(srs, fixed_polys)
+        with trace.span("keygen.sigma"):
+            sigma_coms = kzg_commit_batch(srs, sigma_polys)
 
     usable = cs.usable_rows(n)
     l0_vals = np.zeros(n, dtype=np.int64)

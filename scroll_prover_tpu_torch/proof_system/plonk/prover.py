@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ... import trace
 from ...device import resolve_device
 from ...fields.bn254 import FR_MOD
 from ...fields.limbs import (
@@ -284,6 +285,7 @@ def absorb_instances(tr, vk, instance) -> None:
             tr.common_scalar(int(v) % FR_MOD)
 
 
+@trace.spanned("prove")
 def prove(
     srs: SRS,
     pk: ProvingKey,
@@ -299,7 +301,11 @@ def prove(
     With `ckpt` (a checkpoint.ProveCheckpoint; SPT_LOWMEM=1 required) the
     seed is the checkpoint's, and every commit group, lookup, quotient coset
     and the evaluations are memoized there, so that a prove resumed in a new
-    process replays the transcript to the same bytes."""
+    process replays the transcript to the same bytes.
+
+    The prove is the span "prove", with one child span a phase
+    ("prove.assign" ... "prove.multiopen"); each phase's end logs
+    "prove[<label>] <seconds>" at INFO."""
     if ckpt is not None:
         assert _LOWMEM, "checkpointed proves require SPT_LOWMEM=1"
         seed = ckpt.seed
@@ -329,9 +335,14 @@ def prove(
         return out
 
     _t0 = time.perf_counter()
+    phase = [trace.span("prove.assign").__enter__()]
 
-    def _mark(msg):
+    def _mark(msg, nxt=None):
+        """End the open phase's span, log its label, open the span `nxt`."""
+        phase[0].__exit__(None, None, None)
         log.info("prove[%s] %.1fs", msg, time.perf_counter() - _t0)
+        if nxt:
+            phase[0] = trace.span(nxt).__enter__()
 
     inst = _pad_instance(cs, n, instance)
     tables = assign_cached(circuit, cs, n, inst)
@@ -345,7 +356,7 @@ def prove(
         col[usable:] = _blind_packed(seed, f"adv{i}", n - usable)
         advice_host.append(col)
     tables = None
-    _mark("assigned")
+    _mark("assigned", "prove.advice")
 
     tr = transcript_cls()
     absorb_instances(tr, vk, instance)
@@ -396,7 +407,7 @@ def prove(
     for c in memo("p1_advice", lambda: commit_cols(advice_dev)):
         tr.write_point(c)
 
-    _mark("advice committed")
+    _mark("advice committed", "prove.lookups")
     theta = tr.squeeze_challenge()
 
     # --- phase 2: lookups -------------------------------------------------
@@ -442,7 +453,7 @@ def prove(
     for c in memo("p2_perm", p2_commits):
         tr.write_point(c)
 
-    _mark("lookups committed")
+    _mark("lookups committed", "prove.grand_products")
     beta = tr.squeeze_challenge()
     gamma = tr.squeeze_challenge()
     if _LOWMEM:
@@ -521,7 +532,7 @@ def prove(
         tr.write_point(c)
 
     # --- phase 4: vanishing / quotient ------------------------------------
-    _mark("grand products committed")
+    _mark("grand products committed", "prove.coeff_forms")
     y = tr.squeeze_challenge()
 
     # values -> coefficient forms, each value column freed as its
@@ -559,16 +570,16 @@ def prove(
         ]
     if pk.sigma_polys is None:
         pk.sigma_polys = [_LazyPoly(lambda j=j: dom.intt(pk.sigma_col_mont(j))) for j in range(len(pk.sigma_values))]
-    _mark("coefficient forms")
+    _mark("coefficient forms", "prove.quotient")
     h_chunk_polys = _build_quotient(
         pk, dom, cs, advice_polys, list(pk.fixed_polys), instance_polys,
         pk.sigma_polys, perm_z_polys, lookups, lookup_z_polys,
         chunks, theta, beta, gamma, y, u, device, ckpt=ckpt,
     )
-    _mark("quotient built")
+    _mark("quotient built", "prove.quotient_commit")
     for c in memo("p4_h", lambda: kzg_commit_batch(srs, h_chunk_polys)):
         tr.write_point(c)
-    _mark("quotient committed")
+    _mark("quotient committed", "prove.evals")
 
     x = tr.squeeze_challenge()
 
@@ -630,7 +641,7 @@ def prove(
             tr.write_scalar(v)
         queries.append((p, pt, v))
 
-    _mark("evals written")
+    _mark("evals written", "prove.multiopen")
     v_ch = tr.squeeze_challenge()
 
     if multiopen == "shplonk":

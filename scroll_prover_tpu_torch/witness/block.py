@@ -23,6 +23,8 @@ from dataclasses import dataclass, field
 
 from ..hashes.keccak import keccak256
 from ..l2types.block_trace import BlockTrace
+from ..trace import span as trace_span
+from ..trace import spanned
 
 _LOG = logging.getLogger(__name__)
 
@@ -168,12 +170,14 @@ class WitnessBlock:
             from .sig import tx_sig_event
 
             out = []
-            for tx in self.signed_txs:
-                if cap is not None and len(out) >= cap:
-                    break
-                ev = tx_sig_event(tx)
-                if ev is not None:
-                    out.append(ev)
+            with trace_span("witness.sig") as sp:
+                for tx in self.signed_txs:
+                    if cap is not None and len(out) >= cap:
+                        break
+                    ev = tx_sig_event(tx)
+                    if ev is not None:
+                        out.append(ev)
+                sp.set(signatures=len(out))
             cache = (need_full or len(out) < cap, out)
             self._sig_cache = cache
         evs = cache[1]
@@ -205,6 +209,7 @@ class WitnessBlock:
         return keccak256(self.data_hash_preimage())
 
 
+@spanned("witness.block")
 def chunk_trace_to_witness_block(traces: list[BlockTrace]) -> WitnessBlock:
     assert traces, "empty chunk"
     wb = WitnessBlock(
@@ -283,7 +288,8 @@ def _absorb_block(wb: WitnessBlock, trace: BlockTrace) -> None:
             from .replay import ReplayDivergence, replay_tx
 
             try:
-                repl = replay_tx(trace, tx, er)
+                with trace_span("witness.replay", steps=len(er.struct_logs)):
+                    repl = replay_tx(trace, tx, er)
             except ReplayDivergence as exc:
                 _LOG.warning(
                     "replay divergence for tx %s: %s — statistical fallback",
@@ -291,14 +297,15 @@ def _absorb_block(wb: WitnessBlock, trace: BlockTrace) -> None:
                 )
         if repl is not None:
             wb.replayed_txs += 1
-            _absorb_prestate(wb, er)
-            # storage accesses are emitted PER STEP inside _absorb_replay
-            # (each SLOAD/SSTORE row's rwc lands on its step for the evm
-            # circuit's storage binding); any access the step attribution
-            # missed falls back to bulk emission there
-            _absorb_account_after(wb, er)
-            _absorb_replay(wb, er, repl, wb.num_txs - 1)
-            _walk_calls(wb, er.call_trace)
+            with trace_span("witness.absorb"):
+                _absorb_prestate(wb, er)
+                # storage accesses are emitted PER STEP inside _absorb_replay
+                # (each SLOAD/SSTORE row's rwc lands on its step for the evm
+                # circuit's storage binding); any access the step attribution
+                # missed falls back to bulk emission there
+                _absorb_account_after(wb, er)
+                _absorb_replay(wb, er, repl, wb.num_txs - 1)
+                _walk_calls(wb, er.call_trace)
             continue
 
         _absorb_state(wb, er)

@@ -15,7 +15,6 @@ construction rather than heuristic-vs-circuit as in the reference).
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass, field
 from enum import Enum
 
@@ -238,21 +237,14 @@ class CircuitCapacityChecker:
 
     def reset(self):
         self._acc = RowUsage.empty()
-        self._tx_ms: list[float] = []
 
     def estimate_circuit_capacity(self, trace: BlockTrace) -> RowUsage:
-        t0 = time.perf_counter()
         wb = chunk_trace_to_witness_block([trace])
         self._acc = self._acc.add(row_usage_of_witness_block(wb))
-        self._tx_ms.append((time.perf_counter() - t0) * 1e3)
         return self._acc
 
     def get_acc_row_usage(self, normalize: bool = True) -> RowUsage:
         return self._acc.normalize() if normalize else self._acc
-
-    @property
-    def avg_ms_per_estimate(self) -> float:
-        return sum(self._tx_ms) / len(self._tx_ms) if self._tx_ms else 0.0
 
 
 def ccc_by_chunk(traces: list[BlockTrace]) -> RowUsage:

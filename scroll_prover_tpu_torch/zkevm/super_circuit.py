@@ -15,6 +15,7 @@ aggregation layer (ChunkInfo, SURVEY.md section 2.3):
 """
 from __future__ import annotations
 
+from .. import trace
 from ..fields.bn254 import FR_MOD
 from ..proof_system.plonk.cs import Circuit, ConstraintSystem, empty_assignment
 from ..witness.block import WitnessBlock
@@ -113,10 +114,12 @@ class ScrollSuperCircuit(Circuit):
         self._row_cap_hint = None
 
     @classmethod
+    @trace.spanned("circuit.new_from_block")
     def new_from_block(cls, wb: WitnessBlock) -> "ScrollSuperCircuit":
         return cls(wb)
 
     # -- shape -------------------------------------------------------------
+    @trace.spanned("circuit.min_k")
     def min_k(self) -> int:
         """Smallest domain exponent that fits this witness (test shrink)."""
         usage = row_usage_of_witness_block(self.wb)
@@ -198,30 +201,29 @@ class ScrollSuperCircuit(Circuit):
             fixed[self.byte_table.index][b] = b
 
         used = {}
+
+        def plain(*names):  # sub-circuits assigned from the block alone
+            for name in names:
+                with trace.span("circuit.assign." + name):
+                    used[name] = getattr(self, name).assign(cs, fixed, adv, n, wb, 0)
+
         # pi table is assigned from the WITNESS (not the passed instance):
         # the copy constraints are what bind instance == witness chunk info
-        used["pi"] = self.pi.assign(cs, adv, n, wb, chunk_instance(wb), 0)
-        used["tx"] = self.tx.assign(cs, fixed, adv, n, wb, 0)
-        used["keccak"] = self.keccak.assign(cs, fixed, adv, n, wb, 0)
-        used["bytecode"] = self.bytecode.assign(cs, fixed, adv, n, wb, 0)
-        used["evm"] = self.evm.assign(cs, fixed, adv, n, wb, 0)
-        used["copy"] = self.copy.assign(cs, fixed, adv, n, wb, 0)
-        used["state"] = self.state.assign(cs, fixed, adv, n, wb, 0)
-        used["exp"] = self.exp.assign(cs, fixed, adv, n, wb, 0)
-        used["poseidon"] = self.poseidon.assign(cs, fixed, adv, n, wb, 0)
-        used["mpt"], mpt_pos = self.mpt.assign(
-            cs, fixed, adv, n, wb, 0, pos_row0=used["poseidon"], cap=_mpt_cap()
-        )
+        with trace.span("circuit.assign.pi"):
+            used["pi"] = self.pi.assign(cs, adv, n, wb, chunk_instance(wb), 0)
+        plain("tx", "keccak", "bytecode", "evm", "copy", "state", "exp", "poseidon")
+        with trace.span("circuit.assign.mpt"):
+            used["mpt"], mpt_pos = self.mpt.assign(
+                cs, fixed, adv, n, wb, 0, pos_row0=used["poseidon"], cap=_mpt_cap()
+            )
         used["poseidon"] += mpt_pos
-        used["sig"] = self.sig.assign(cs, fixed, adv, n, wb, 0)
-        used["ecc"] = self.ecc.assign(cs, fixed, adv, n, wb, 0)
-        used["mod_exp"] = self.mod_exp.assign(cs, fixed, adv, n, wb, 0)
-        used["keccak"] += self.keccak_f.assign(
-            cs, fixed, adv, n, wb, 0, self.keccak,
-            lambda dig: self.keccak.row_of_[dig],
-        )
-        used["rlp"] = self.rlp.assign(cs, fixed, adv, n, wb, 0)
-        used["sha256"] = self.sha256.assign(cs, fixed, adv, n, wb, 0)
+        plain("sig", "ecc", "mod_exp")
+        with trace.span("circuit.assign.keccak_f"):
+            used["keccak"] += self.keccak_f.assign(
+                cs, fixed, adv, n, wb, 0, self.keccak,
+                lambda dig: self.keccak.row_of_[dig],
+            )
+        plain("rlp", "sha256")
         self.row_usages_ = used
         return {"fixed": fixed, "advice": adv}
 
